@@ -16,6 +16,9 @@ and the port's state_dict names the same numbers
     blocks.{i}.{act_scale, w_scale}, exit.act_scale
 
 Kernels keep their dtype (an int8 kernel of a quantized block stays int8).
+The SGD momentum buffers of the port's optimizer carry across as optax's
+`trace` state, a tree shaped like params (`momentum_to_flax`,
+`load_momentum`).
 """
 
 from __future__ import annotations
@@ -39,7 +42,9 @@ def _block_index(name: str) -> int:
 
 
 def flax_to_torch(variables) -> Dict[str, torch.Tensor]:
-    """Flax variables tree (numpy leaves) -> the port's state_dict."""
+    """Flax variables tree (numpy leaves) -> the port's state_dict. A tree
+    without batch_stats (a params-shaped tree such as an optimizer trace)
+    gives the parameter entries only."""
     sd: Dict[str, torch.Tensor] = {}
 
     def put(key, value):
@@ -59,9 +64,10 @@ def flax_to_torch(variables) -> Dict[str, torch.Tensor]:
         if "BatchNorm_0" in block:
             for src, dst in _BN.items():
                 put(f"{prefix}.bn.{dst}", block["BatchNorm_0"][src])
-            for src, dst in _STATS.items():
-                put(f"{prefix}.bn.{dst}", stats[name]["BatchNorm_0"][src])
-            sd[f"{prefix}.bn.num_batches_tracked"] = torch.tensor(0)
+            if name in stats:
+                for src, dst in _STATS.items():
+                    put(f"{prefix}.bn.{dst}", stats[name]["BatchNorm_0"][src])
+                sd[f"{prefix}.bn.num_batches_tracked"] = torch.tensor(0)
     for name, q in variables.get("quant", {}).items():
         prefix = "exit" if name == "__exit__" else f"blocks.{_block_index(name)}"
         for key, value in q.items():
@@ -105,6 +111,27 @@ def torch_to_flax(state_dict: Dict[str, torch.Tensor]) -> dict:
     if quant:
         out["quant"] = quant
     return out
+
+
+def momentum_to_flax(model: torch.nn.Module,
+                     optimizer: torch.optim.Optimizer) -> dict:
+    """The optimizer's momentum buffers as optax's trace tree (numpy,
+    params-shaped). A parameter without a buffer yet (no step taken)
+    carries zeros, as optax's trace starts."""
+    sd = {}
+    for name, p in model.named_parameters():
+        buf = optimizer.state.get(p, {}).get("momentum_buffer")
+        sd[name] = torch.zeros_like(p) if buf is None else buf
+    return torch_to_flax(sd)["params"]
+
+
+def load_momentum(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
+                  trace) -> None:
+    """Set the optimizer's momentum buffers from optax's trace tree."""
+    sd = flax_to_torch({"params": trace})
+    for name, p in model.named_parameters():
+        optimizer.state[p]["momentum_buffer"] = (
+            sd[name].to(device=p.device, dtype=p.dtype).clone())
 
 
 def _lecun_normal(rng: np.random.Generator, shape) -> np.ndarray:

@@ -1,9 +1,11 @@
-"""Metrics: overall accuracy, Cohen's kappa, per-class and mean F1, and the
-confusion matrix (counterpart of dynseg/metrics.py).
+"""Metrics: overall accuracy, Cohen's kappa, per-class and mean F1, the
+confusion matrix and the train step's batch accuracies (counterpart of
+dynseg/metrics.py).
 
 `scores_from_confusion` and `erode_boundaries` are host numpy, equal to
-the reference's (held so by tests); `confusion_matrix` counts on the
-tensors' device. Pixels labeled IGNORE_LABEL are excluded everywhere.
+the reference's (held so by tests); `confusion_matrix`, `batch_accuracy`
+and `balanced_batch_accuracy` compute on the tensors' device. Pixels
+labeled IGNORE_LABEL are excluded everywhere.
 """
 
 from __future__ import annotations
@@ -25,6 +27,28 @@ def confusion_matrix(preds: torch.Tensor, labels: torch.Tensor,
     idx = labels[valid] * num_classes + preds[valid]
     return torch.bincount(idx, minlength=num_classes * num_classes).reshape(
         num_classes, num_classes)
+
+
+def batch_accuracy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Per-pixel accuracy over the valid pixels of a batch (the scheduler's
+    'acc' signal), a float32 scalar tensor; 0 when no pixel is valid."""
+    valid = labels != IGNORE_LABEL
+    correct = ((logits.argmax(-1) == labels) & valid).sum()
+    return (correct / valid.sum().clamp(min=1)).float()
+
+
+def balanced_batch_accuracy(logits: torch.Tensor, labels: torch.Tensor,
+                            num_classes: int) -> torch.Tensor:
+    """Mean per-class recall over the classes present in the batch (the
+    scheduler's 'balanced_acc' signal), a float32 scalar tensor in [0, 1]."""
+    valid = (labels != IGNORE_LABEL).reshape(-1)
+    labs = labels.reshape(-1)[valid].long()
+    hit = (logits.argmax(-1).reshape(-1)[valid] == labs)
+    total = torch.bincount(labs, minlength=num_classes)[:num_classes]
+    hits = torch.bincount(labs[hit], minlength=num_classes)[:num_classes]
+    present = total > 0
+    recall = torch.where(present, hits / total.clamp(min=1), 0.0)
+    return (recall.sum() / present.sum().clamp(min=1)).float()
 
 
 def scores_from_confusion(cm: np.ndarray) -> Dict[str, object]:

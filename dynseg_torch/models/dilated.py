@@ -1,8 +1,9 @@
 """The five dilated network variants (counterpart of dynseg/models/dilated.py).
 
-Every variant is a stack of DilatedConvBlocks with ramping dilation and a
-1x1 score head, stride 1 throughout, so logits have the input's spatial
-shape for any patch size. The nets take and return NHWC tensors, the
+Every variant is a stack of DilatedConvBlocks with ramping dilation, an
+optional dropout (train mode, dropout_rate > 0) and a 1x1 score head,
+stride 1 throughout, so logits have the input's spatial shape for any
+patch size. The nets take and return NHWC tensors, the
 reference's layout; inside they run NCHW in the channels_last format.
 """
 
@@ -64,7 +65,28 @@ def _block(cfg: ModelConfig, cin: int, k: int, feats: int, dil: int,
     return DilatedConvBlock(
         cin, max(1, int(feats * cfg.width_multiplier)), k, dilation=dil,
         leaky_slope=cfg.leaky_slope, use_batch_norm=cfg.use_batch_norm,
-        pool=pool, pool_window=cfg.pool_window)
+        bn_momentum=cfg.bn_momentum, pool=pool, pool_window=cfg.pool_window,
+        pool_backward=cfg.pool_backward)
+
+
+class _Dropout(nn.Module):
+    """Flax's Dropout before the head, active in train mode only: keep
+    each value with probability 1 - rate and scale it by 1 / (1 - rate).
+    The mask is drawn from `generator` (a torch.Generator on the
+    activations' device, passed by the trainer), so a run is reproducible
+    from its seed; its bits differ from JAX's."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if not self.training or self.rate <= 0:
+            return x
+        keep = 1.0 - self.rate
+        u = torch.rand(x.shape, generator=generator, device=x.device)
+        return torch.where(u < keep, x / keep, torch.zeros_like(x))
 
 
 class DilatedNet(nn.Module):
@@ -78,14 +100,17 @@ class DilatedNet(nn.Module):
             blocks.append(_block(cfg, cin, k, feats, dil, pool))
             cin = blocks[-1].conv.out_channels
         self.blocks = nn.ModuleList(blocks)
+        self.dropout = _Dropout(cfg.dropout_rate)
         self.head = ScoreHead(cin, cfg.num_classes)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """(B, H, W, C) float32 -> (B, H, W, num_classes) float32 logits."""
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """(B, H, W, C) float32 -> (B, H, W, num_classes) float32 logits;
+        `generator` draws the train-mode dropout mask."""
         h = to_nchw(x)
         for block in self.blocks:
             h = block(h)
-        return self.head(h).permute(0, 2, 3, 1)
+        return self.head(self.dropout(h, generator)).permute(0, 2, 3, 1)
 
 
 class DilatedDenseNet(nn.Module):
@@ -101,13 +126,16 @@ class DilatedDenseNet(nn.Module):
             blocks.append(_block(cfg, total, k, feats, dil, pool))
             total += blocks[-1].conv.out_channels
         self.blocks = nn.ModuleList(blocks)
+        self.dropout = _Dropout(cfg.dropout_rate)
         self.head = ScoreHead(total - num_input_bands, cfg.num_classes)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         feats = [to_nchw(x)]
         for block in self.blocks:
             feats.append(block(torch.cat(feats, dim=1)))
-        return self.head(torch.cat(feats[1:], dim=1)).permute(0, 2, 3, 1)
+        h = self.dropout(torch.cat(feats[1:], dim=1), generator)
+        return self.head(h).permute(0, 2, 3, 1)
 
 
 def arch(cfg: ModelConfig) -> Tuple[Tuple[int, int, int, bool], ...]:
@@ -131,8 +159,8 @@ def receptive_radius(cfg: ModelConfig) -> int:
 
 def build_model(cfg: ModelConfig,
                 num_input_bands: Optional[int] = None) -> nn.Module:
-    """Model factory over cfg.net_type, in eval mode and channels_last.
-    Only compute_dtype float32 is ported."""
+    """Model factory over cfg.net_type, in eval mode and channels_last
+    (training calls .train()). Only compute_dtype float32 is ported."""
     if cfg.compute_dtype != "float32":
         raise NotImplementedError(
             f"compute_dtype {cfg.compute_dtype!r}: the port runs float32 only")

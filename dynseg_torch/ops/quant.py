@@ -26,9 +26,9 @@ import torch
 import torch.nn.functional as F
 
 from dynseg.config import ModelConfig
-from dynseg_torch.models.blocks import max_pool_same
 from dynseg_torch.models.dilated import arch, to_nchw
 from dynseg_torch.ops.int8_conv import int8_block_conv
+from dynseg_torch.ops.pool import pool_forward
 
 
 def _dense_wired(mcfg: ModelConfig) -> bool:
@@ -88,7 +88,7 @@ def _quantize_act(x: torch.Tensor, sx: torch.Tensor) -> torch.Tensor:
 def _pool_int8(y: torch.Tensor, window: int) -> torch.Tensor:
     # No int8 max-pool on every device: pool the codes in float32, which
     # is exact, and cast back.
-    return max_pool_same(y.float(), window).to(torch.int8)
+    return pool_forward(y.float(), window).to(torch.int8)
 
 
 def _block_forward(mcfg: ModelConfig, spec: dict, p: Dict[str, torch.Tensor],
@@ -120,7 +120,7 @@ def _block_forward(mcfg: ModelConfig, spec: dict, p: Dict[str, torch.Tensor],
             out_scale=out_scale).permute(0, 3, 1, 2)
         if out_scale is not None:
             return (_pool_int8(y, window) if window else y), out_scale
-        return (max_pool_same(y, window) if window else y), None
+        return (pool_forward(y, window) if window else y), None
     if in_scale is not None:
         x = x.float() * in_scale
     y = F.conv2d(x, p["conv.weight"], padding="same", dilation=spec["dilation"])
@@ -134,7 +134,7 @@ def _block_forward(mcfg: ModelConfig, spec: dict, p: Dict[str, torch.Tensor],
     if out_scale is not None:
         y = _quantize_act(y, out_scale)
         return (_pool_int8(y, window) if window else y), out_scale
-    return (max_pool_same(y, window) if window else y), None
+    return (pool_forward(y, window) if window else y), None
 
 
 def _block_params(variables: Dict[str, torch.Tensor], spec: dict) -> dict:
