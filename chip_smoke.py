@@ -34,7 +34,24 @@ synthetic tiles:
      falling, final OA, and K2/K4 launches equal to the gathers and
      pool backwards the run made;
   8. K2 and K4 kernel vs plain, bitwise, on the tiles, positions and
-     activations of one real train step at 65 px.
+     activations of one real train step at 65 px;
+  9. P1 (int8_conv3x3_requant) kernel vs plain, bitwise, on the TPU
+     probe's check shapes, on ragged ones (odd H and W, B=3, C 32 and 160,
+     dilations 1, 2, 5, 6) and at the probe's shape 8 x 592^2 x 256,
+     dilation 6, with its CUDA-event time and TOPS;
+ 10. the int8 conv probe (`python -m dynseg_torch.probes.int8_kernel_probe`
+     through its `main`, a few reps): one line per leg, P1's launches
+     counted over the run;
+ 11. the command line, `python -m dynseg_torch` in subprocesses at full
+     width (3 bands, 2 classes, batch 100, the tiles of phase 7): training
+     (40 iterations, checkpoints every 20, EMA + recalibration, K4), testing
+     (restores iteration 40 with the recalibrated statistics and prints
+     the training run's TOTAL line; differing label pixels are counted),
+     training --resume to 60, then side by side testing --quant int8
+     --quant_exit (K5 launches = 3 x the int8 forwards), predict on two
+     rasters with --predict_chunk 1, and info. Every exit code must be 0;
+     each run's K2/K4/K5 launches (its "kernel launches:" line) are held
+     to the run; each run's output is in smoke_out/cli_<name>.log.
 
 With --profile DIR, it also traces one warm train step per pool backward
 with torch.profiler and writes the chrome traces and a kernel summary
@@ -52,6 +69,7 @@ import collections
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -65,6 +83,8 @@ GATHER_SOURCE = "dynseg_torch/csrc/patch_gather.cu"
 GATHER_REPLACES = "dynseg/ops/pallas_gather.py:92"
 POOL_SOURCE = "dynseg_torch/csrc/pool_bwd.cu"
 POOL_REPLACES = "dynseg/ops/pool.py:76"
+P1_SOURCE = "dynseg_torch/csrc/int8_conv3x3.cu"
+P1_REPLACES = "scripts/int8_kernel_probe.py:112"
 DEVICE = "cuda"
 OUT_DIR = "smoke_out"
 SCALES = (25, 35, 45, 55, 65)
@@ -79,6 +99,14 @@ GEOMETRIES = (("block3", 128, 128, 4, 4, True),
 # eval and recalibration batches, synthetic tiles (4 train, 2 test).
 TRAIN_BATCH, TRAIN_STEPS, XLA_STEPS, EVAL_EVERY, RECALIB = 100, 40, 20, 20, 10
 TRAIN_TILE = 512
+# P1's (B, H, W, C, dilation): the TPU probe's check shapes, ragged ones,
+# then the probe's shape.
+P1_SHAPES = ((2, 16, 16, 128, 2), (1, 32, 32, 128, 6), (3, 17, 23, 32, 1),
+             (3, 21, 15, 160, 2), (3, 19, 13, 32, 5), (3, 25, 11, 160, 6),
+             (8, 592, 592, 256, 6))
+PROBE_REPS = 5
+# The command line: iterations of the first training run and of the resume.
+CLI_NITER, CLI_RESUME_NITER, CLI_EVERY = 40, 60, 20
 
 
 def log(msg: str) -> None:
@@ -246,7 +274,7 @@ def run_slice(weights, int8_conv, card: str) -> dict:
     int8_conv.launches = 0
     for name, cfg, tiles in runs:
         t0 = time.perf_counter()
-        scores = validate_test(cfg, weights, tiles, log=lambda *_: None)
+        scores = validate_test(cfg, weights, tiles, DEVICE, log=lambda *_: None)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         px = int(np.prod(tiles.valid_hw, axis=1).sum())
@@ -516,6 +544,199 @@ def check_train_real_activations(gather, pool) -> None:
             raise SystemExit(f"{name}: kernel disagrees on real data")
 
 
+def check_p1_kernel(p1) -> dict:
+    """Phase 9: P1 kernel vs plain, bitwise. The scale spreads the codes
+    over the whole int8 range, a few percent clipped at each bound."""
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(dev).manual_seed(9)
+    for b, h, w, c, dil in P1_SHAPES:
+        x = torch.randint(-128, 128, (b, h, w, c), generator=gen, device=dev,
+                          dtype=torch.int8)
+        wt = torch.randint(-128, 128, (3, 3, c, c), generator=gen, device=dev,
+                           dtype=torch.int8)
+        scale = 64.0 / (math.sqrt(9 * c) * 73.9 ** 2)
+        got = p1.int8_conv3x3_requant(x, wt, scale, dil)
+        want = p1.int8_conv3x3_requant_ref(x, wt, scale, dil)
+        torch.cuda.synchronize()
+        same = torch.equal(got, want)
+        lo, hi = float((want == -128).float().mean()), float((want == 127).float().mean())
+        log(f"P1 x({b},{h},{w},{c}) d{dil}: kernel == plain bitwise: {same} "
+            f"(codes at -128 {lo:.4f}, at 127 {hi:.4f})")
+        if not same:
+            diff = (got.int() - want.int()).abs().max().item()
+            raise SystemExit(f"P1 {(b, h, w, c, dil)}: kernel disagrees with plain ({diff})")
+    ms = time_ms(lambda: p1.int8_conv3x3_requant(x, wt, scale, dil), 10)
+    plain = time_ms(lambda: p1.int8_conv3x3_requant_ref(x, wt, scale, dil), 2)
+    ops = 2.0 * b * h * w * 9 * c * c
+    log(f"P1 at the probe's shape: kernel {ms:.3f} ms ({ops / ms / 1e9:.1f} TOPS) "
+        f"plain {plain:.3f} ms")
+    del x, wt, got, want
+    torch.cuda.empty_cache()
+    return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain}
+
+
+def run_probe(p1) -> int:
+    """Phase 10: the probe's main; returns P1's launches in it."""
+    from dynseg_torch.probes import int8_kernel_probe
+
+    p1.launches = 0
+    out = f"{OUT_DIR}/int8_kernel_probe.json"
+    if int8_kernel_probe.main(["--reps", str(PROBE_REPS), "--out", out]) != 0:
+        raise SystemExit("int8 kernel probe failed")
+    launches = p1.launches
+    # 2 check shapes + 3 warm-up + the timed reps of leg C.
+    expected = len(int8_kernel_probe.CHECK_SHAPES) + 3 + PROBE_REPS
+    log(f"P1 launches in the probe: {launches} (expected {expected})")
+    if launches != expected:
+        raise SystemExit("P1 launch count does not match the probe")
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _launch_line(lines, name: str) -> dict:
+    found = [m for m in lines if m.startswith("kernel launches:")]
+    if len(found) != 1:
+        raise SystemExit(f"CLI {name}: no kernel launches line")
+    return {k: int(v) for k, v in (kv.split("=") for kv in found[0].split()[2:])}
+
+
+def run_cli(card: str) -> dict:
+    """Phase 11: python -m dynseg_torch through training, testing, resume,
+    int8 testing, predict and info."""
+    from PIL import Image
+
+    from dynseg.data.datasets import load_dataset
+    from dynseg_torch import cli
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = os.path.join(root, OUT_DIR, "cli")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    kwargs = {"size": TRAIN_TILE, "num_tiles": 4}
+    common = ["--device", DEVICE, "--dataset", "synthetic", "--dataset_kwargs",
+              json.dumps(kwargs), "--values", ",".join(map(str, SCALES)),
+              "--batch_size", str(TRAIN_BATCH), "--output_path", out]
+    train_flags = ["--checkpoint_every", str(CLI_EVERY), "--eval_every", str(CLI_EVERY),
+                   "--ema_decay", "0.9", "--ema_recalib_batches", str(RECALIB),
+                   "--pool_backward", "pallas"]
+    walls = {}
+
+    def start(name, argv):
+        """A `python -m dynseg_torch` process, its output to a log file."""
+        log_path = os.path.join(root, OUT_DIR, f"cli_{name}.log")
+        with open(log_path, "w") as f:
+            proc = subprocess.Popen([sys.executable, "-m", "dynseg_torch", *argv, *common],
+                                    stdout=f, stderr=subprocess.STDOUT, text=True, cwd=root)
+        return name, time.perf_counter(), proc, log_path
+
+    def finish(job, note="", end=None):
+        name, t0, proc, log_path = job
+        rc = proc.wait(timeout=600)
+        walls[name] = (time.perf_counter() if end is None else end) - t0
+        with open(log_path) as f:
+            text = f.read()
+        log(f"CLI {name}: exit {rc}, wall {walls[name]:.1f} s{note} [{card}]")
+        if rc != 0:
+            print(text[-3000:], file=sys.stderr)
+            raise SystemExit(f"CLI {name} exited {rc}")
+        return text.splitlines()
+
+    def run(name, argv):
+        return finish(start(name, argv))
+
+    def total(lines, name):
+        found = [m for m in lines if m.startswith("TOTAL:")]
+        if len(found) != 1:
+            raise SystemExit(f"CLI {name}: no TOTAL line")
+        log(f"  {found[0]}")
+        return found[0]
+
+    def expect(name, lines, **want):
+        got = _launch_line(lines, name)
+        log(f"  kernel launches {got} (expected {want})")
+        if any(got[k] != v for k, v in want.items()):
+            raise SystemExit(f"CLI {name}: launch counts do not match the run")
+
+    n = len(SCALES)
+    lines = run("training", ["--operation", "training", "--niter", str(CLI_NITER),
+                             *train_flags])
+    train_total = total(lines, "training")
+    expect("training", lines, patch_gather=n + CLI_NITER + CLI_NITER // CLI_EVERY + RECALIB,
+           pool_bwd=6 * (n + CLI_NITER), int8_block_conv=0)
+    maps = sorted(f for f in os.listdir(out) if f.startswith("prediction_"))
+    for f in maps:
+        os.replace(os.path.join(out, f), os.path.join(out, "train_" + f))
+
+    lines = run("testing", ["--operation", "testing"])
+    for want in (f"restored checkpoint at iteration {CLI_NITER}",
+                 "using recalibrated BatchNorm statistics"):
+        if not any(want in m for m in lines):
+            raise SystemExit(f"CLI testing: no '{want}' line")
+    differ = sum(int(np.any(np.asarray(Image.open(os.path.join(out, f)))
+                            != np.asarray(Image.open(os.path.join(out, "train_" + f))),
+                            axis=-1).sum()) for f in maps)
+    log(f"  label pixels differing from the training process's maps: {differ} "
+        f"over {len(maps)} maps")
+    if total(lines, "testing") != train_total:
+        raise SystemExit("CLI testing: TOTAL differs from the training run's")
+
+    lines = run("resume", ["--operation", "training", "--resume", "--niter",
+                           str(CLI_RESUME_NITER), *train_flags])
+    if not any(f"resumed from iteration {CLI_NITER}" in m for m in lines):
+        raise SystemExit("CLI resume: no 'resumed from iteration' line")
+    steps = CLI_RESUME_NITER - CLI_NITER
+    total(lines, "resume")
+    expect("resume", lines, patch_gather=n + steps + steps // CLI_EVERY + RECALIB,
+           pool_bwd=6 * (n + steps))
+
+    # int8 testing, predict and info only read the checkpoint: they run
+    # side by side, and their walls overlap.
+    rasters = os.path.join(out, "rasters")
+    os.makedirs(rasters)
+    rng = np.random.default_rng(11)
+    shapes = {"scene_a": (600, 700), "scene_b": (384, 512)}
+    for stem, (h, w) in shapes.items():
+        np.save(os.path.join(rasters, f"{stem}.npy"),
+                rng.integers(0, 256, (h, w, 3), dtype=np.uint8))
+    int8_argv = ["--operation", "testing", "--quant", "int8", "--quant_exit"]
+    jobs = [start("testing_int8", int8_argv),
+            start("predict", ["--operation", "predict", "--predict_path", rasters,
+                              "--predict_chunk", "1"]),
+            start("info", ["--operation", "info"])]
+    try:
+        ends = {}
+        deadline = time.perf_counter() + 600
+        while len(ends) < len(jobs) and time.perf_counter() < deadline:
+            for name, _, proc, _ in jobs:
+                if name not in ends and proc.poll() is not None:
+                    ends[name] = time.perf_counter()
+            time.sleep(0.1)
+        lines = finish(jobs[0], " (beside predict and info)", ends.get("testing_int8"))
+        total(lines, "testing_int8")
+        cfg = cli.config_from_args(cli.build_argparser().parse_args(int8_argv + common))
+        test_tiles = load_dataset("synthetic", "", 0, seed=0, **kwargs)[1]
+        k5 = 3 * expected_forwards(cfg, test_tiles)
+        expect("testing_int8", lines, int8_block_conv=k5, patch_gather=0)
+
+        finish(jobs[1], " (beside int8 testing and info)", ends.get("predict"))
+        for stem, (h, w) in shapes.items():
+            path = os.path.join(out, f"prediction_{stem}.png")
+            if not os.path.exists(path) or Image.open(path).size != (w, h):
+                raise SystemExit(f"CLI predict: no {w}x{h} map {path}")
+        log(f"  wrote {len(shapes)} maps: {', '.join(sorted(shapes))}")
+
+        lines = finish(jobs[2], " (beside int8 testing and predict)", ends.get("info"))
+        if f"iteration: {CLI_RESUME_NITER}" not in lines:
+            raise SystemExit("CLI info: wrong iteration")
+        log("  " + next(m for m in lines if m.startswith("checkpoints:")))
+    finally:
+        for _, _, proc, _ in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return {"walls": walls, "k5": k5, "differ": differ}
+
+
 def profile_train_steps(out_dir: str) -> None:
     """--profile: torch.profiler over one warm full-width train step per
     pool backward at 25 and 65 px; chrome traces and kernel sums."""
@@ -561,7 +782,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    from dynseg_torch.ops import _build, gather, int8_conv, pool
+    from dynseg_torch.ops import _build, gather, int8_conv, int8_probe_conv, pool
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -598,6 +819,11 @@ def main() -> int:
     if args.profile:
         profile_train_steps(args.profile)
 
+    # The probe (P1) and the command line.
+    p1 = check_p1_kernel(int8_probe_conv)
+    p1["launches"] = run_probe(int8_probe_conv)
+    run_cli(card)
+
     def entry(name, source, replaces, k):
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": k["launches"],
@@ -607,7 +833,8 @@ def main() -> int:
     print(json.dumps({"kernels": [
         entry("int8_block_conv", KERNEL_SOURCE, KERNEL_REPLACES, k5),
         entry("patch_gather", GATHER_SOURCE, GATHER_REPLACES, k2),
-        entry("pool_bwd", POOL_SOURCE, POOL_REPLACES, k4)]}))
+        entry("pool_bwd", POOL_SOURCE, POOL_REPLACES, k4),
+        entry("int8_conv3x3", P1_SOURCE, P1_REPLACES, p1)]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,9 +12,16 @@ the name of its `dynseg` counterpart so that a reader finds both halves:
   * `ops.gather`      kernel K2, the patch gather (`csrc/patch_gather.cu`);
   * `ops.pool`        the stride-1 max-pool and kernel K4, its tie-split
                       backward (`csrc/pool_bwd.cu`);
+  * `ops.int8_probe_conv` kernel P1, the int8 conv probe's 3x3 conv on the
+                      tensor cores (`csrc/int8_conv3x3.cu`);
   * `ops.quant`       int8 post-training quantization and the mixed forward;
   * `metrics`, `infer` the window/dense `validate_test` serving path;
-  * `train`, `cli`    the training path and its entry point `run_training`.
+  * `train`           the training path;
+  * `checkpoint`      checkpoints, resume, best tracking, and the importer
+                      of dynseg's checkpoints;
+  * `cli`, `__main__` `python -m dynseg_torch`, the reference's flags plus
+                      `--device`;
+  * `probes`          `python -m dynseg_torch.probes.int8_kernel_probe`.
 
 The package imports torch and numpy, plus the numpy-only modules of
 `dynseg` (config, data.*, sched, viz, ops.dihedral); never jax.

@@ -75,6 +75,14 @@ def flax_to_torch(variables) -> Dict[str, torch.Tensor]:
     return sd
 
 
+def batch_stats_to_torch(batch_stats) -> Dict[str, torch.Tensor]:
+    """A Flax batch_stats tree (numpy leaves; the stats sidecar's
+    ema_batch_stats) -> the port's BatchNorm running-statistics entries."""
+    return {f"blocks.{_block_index(name)}.bn.{dst}":
+            torch.from_numpy(np.array(block["BatchNorm_0"][src], order="C"))
+            for name, block in batch_stats.items() for src, dst in _STATS.items()}
+
+
 def torch_to_flax(state_dict: Dict[str, torch.Tensor]) -> dict:
     """The port's state_dict -> Flax variables tree with numpy leaves."""
     params: dict = {}

@@ -11,9 +11,9 @@ blocks with a halo of at least the receptive radius reproduce the
 whole-tile forward, and their centres overwrite the map.
 
 The tiles stay resident on the device; tiles, probability and label maps
-keep the reference's NHWC layout and dtypes. Not ported yet: test-time
-augmentation, scheduler top-K scales, the device mesh and host streaming
-past hbm_budget_gb.
+keep the reference's NHWC layout and dtypes. The device is the caller's
+(`train.resolve_device`). Not ported yet: test-time augmentation, the
+device mesh and host streaming past hbm_budget_gb.
 """
 
 from __future__ import annotations
@@ -33,6 +33,7 @@ from dynseg_torch.metrics import (confusion_matrix, erode_boundaries,
                                   scores_from_confusion)
 from dynseg_torch.models.dilated import build_model, receptive_radius
 from dynseg_torch.ops import quant as quant_ops
+from dynseg_torch.train import resolve_device
 
 
 def window_origins(lo: int, hi: int, size: int, stride: int, lim: int) -> List[int]:
@@ -73,7 +74,7 @@ class Inferencer:
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.model = build_model(cfg.model, tiles.num_bands).to(self.device)
         self._apply = self._float_apply
         self.scales = [int(s) for s in cfg.infer.scales]
@@ -279,15 +280,18 @@ def validate_test(
     cfg: Config,
     variables: Dict[str, torch.Tensor],
     test_tiles: TileSet,
+    device,
     scales: Optional[Sequence[int]] = None,
     log=print,
 ) -> Dict[str, object]:
-    """Predict every test tile and report OA / kappa / per-class F1 /
-    confusion, plus the per-tile label maps, like dynseg's validate_test.
-    `variables` is the port's float state_dict; the run happens on the
-    device that holds it."""
-    device = next(iter(variables.values())).device
+    """Predict every test tile on `device` and report OA / kappa /
+    per-class F1 / confusion, plus the per-tile label maps, like dynseg's
+    validate_test. `variables` is the port's float state_dict (moved to
+    `device` where it lies elsewhere); `scales` overrides the inference
+    scales (the scheduler's top-K)."""
     inf = Inferencer(cfg, test_tiles, device=device)
+    device = inf.device
+    variables = {k: v.to(device) for k, v in variables.items()}
     if cfg.infer.quant != "none":
         variables = inf.enable_quant(variables)
         blocks = sorted(f"DilatedConvBlock_{k.split('.')[1]}"

@@ -58,6 +58,10 @@ def _bind(lib: ctypes.CDLL) -> None:
     # x, y, g, gdc, dx, B, H, W, C, window, stream
     fn.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
     fn.restype = ctypes.c_int
+    fn = lib.dynseg_int8_conv3x3
+    # x, w_packed, out, B, H, W, C, dilation, scale, stream
+    fn.argtypes = [p, p, p, i, i, i, i, i, f, p]
+    fn.restype = ctypes.c_int
 
 
 def load_library() -> ctypes.CDLL:

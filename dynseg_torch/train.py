@@ -19,6 +19,11 @@ PyTorch runs eagerly, so the reference's per-bucket jit becomes one
 warm-up step per scale (`compile_buckets`: cuDNN picks its algorithms on
 a shape's first call). Only one device is ported: `num_devices > 1` and
 `shard_tiles` raise. The fp32 convolutions run without TF32.
+
+The device is always the caller's choice (`resolve_device`): asked for
+"cuda" where no card is visible, the port raises and never carries on on
+the CPU. `checkpoint_dict` / `load_checkpoint_dict` carry a TrainState to
+and from what `dynseg_torch.checkpoint` writes.
 """
 
 from __future__ import annotations
@@ -61,6 +66,20 @@ class TrainState:
     ema: Optional[Dict[str, torch.Tensor]] = None
 
 
+def resolve_device(device) -> torch.device:
+    """`device` as a torch.device; "cuda" where no card is visible raises
+    instead of falling back to the CPU."""
+    if device is None:
+        raise ValueError("no device given: pass 'cuda' or 'cpu'")
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "device 'cuda' was asked for but no CUDA card is visible "
+            "(torch.cuda.is_available() is false); pass --device cpu to run "
+            "on the CPU")
+    return dev
+
+
 def learning_rate(cfg: Config, step: int) -> float:
     """optax.exponential_decay(staircase=True) at `step`, or the constant
     rate when lr_decay_rate >= 1."""
@@ -79,6 +98,63 @@ def make_optimizer(cfg: Config, model: nn.Module) -> torch.optim.SGD:
         [{"params": kernels, "weight_decay": cfg.train.weight_decay},
          {"params": others, "weight_decay": 0.0}],
         lr=learning_rate(cfg, 0), momentum=cfg.train.momentum, dampening=0.0)
+
+
+def _new_state(cfg: Config, model: nn.Module) -> TrainState:
+    ema = None
+    if cfg.train.ema_decay > 0.0:
+        ema = {n: p.detach().clone() for n, p in model.named_parameters()}
+    return TrainState(model, make_optimizer(cfg, model), 0, ema)
+
+
+def init_state_template(cfg: Config, device) -> TrainState:
+    """A TrainState with the shapes a checkpoint of `cfg` restores into,
+    on `device`, with no trainer and no training tiles (the predict,
+    testing and info paths); the values are torch's default init."""
+    model = build_model(cfg.model, cfg.model.num_input_bands)
+    model.to(resolve_device(device)).train()
+    return _new_state(cfg, model)
+
+
+def checkpoint_dict(state: TrainState) -> dict:
+    """The TrainState as plain tensors on the CPU: the model's state_dict,
+    the momentum buffers by parameter name (those the optimizer holds),
+    the EMA dict or None, and the step."""
+    def cpu(t):
+        return t.detach().to("cpu", copy=True)
+
+    momentum = {}
+    for name, p in state.model.named_parameters():
+        buf = state.optimizer.state.get(p, {}).get("momentum_buffer")
+        if buf is not None:
+            momentum[name] = cpu(buf)
+    return {"model": {k: cpu(v) for k, v in state.model.state_dict().items()},
+            "momentum": momentum,
+            "ema": None if state.ema is None else {k: cpu(v) for k, v in state.ema.items()},
+            "step": int(state.step)}
+
+
+def load_checkpoint_dict(state: TrainState, ckpt: dict) -> TrainState:
+    """Fill `state` (a template of the right shapes) from a
+    `checkpoint_dict`, in place, on the template's device."""
+    state.model.load_state_dict(ckpt["model"])
+    params = dict(state.model.named_parameters())
+    state.optimizer.state.clear()
+    for name, buf in ckpt["momentum"].items():
+        p = params[name]
+        state.optimizer.state[p]["momentum_buffer"] = buf.to(p.device, p.dtype).clone()
+    if (ckpt["ema"] is None) != (state.ema is None):
+        raise ValueError(
+            f"checkpoint has {'no ' if ckpt['ema'] is None else ''}EMA weights "
+            f"but the template was built with ema_decay "
+            f"{'> 0' if state.ema is not None else '= 0'}")
+    if state.ema is not None:
+        if set(ckpt["ema"]) != set(params):
+            raise ValueError("EMA weights do not match the model's parameters")
+        state.ema = {k: v.to(params[k].device, params[k].dtype).clone()
+                     for k, v in ckpt["ema"].items()}
+    state.step = int(ckpt["step"])
+    return state
 
 
 def ema_variables(cfg: Config, state: TrainState) -> Optional[Dict[str, torch.Tensor]]:
@@ -137,7 +213,7 @@ class Trainer:
     """Owns the resident tiles, the sampler, the per-scale batch sizes and
     the step; the model and optimizer live in the TrainState."""
 
-    def __init__(self, cfg: Config, train_tiles: TileSet, device=None):
+    def __init__(self, cfg: Config, train_tiles: TileSet, device):
         if cfg.train.num_devices != 1 or cfg.train.shard_tiles:
             raise NotImplementedError(
                 "data parallelism (--num_devices > 1, --shard_tiles) is not "
@@ -147,10 +223,7 @@ class Trainer:
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
         self.cfg = cfg
-        # Like JAX's default backend: the card when there is one.
-        if device is None:
-            device = "cuda" if torch.cuda.is_available() else "cpu"
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.scales = [int(v) for v in cfg.sched.values]
         self.pad = max(self.scales) // 2 + 1
         self.num_bands = int(train_tiles.images.shape[-1])
@@ -201,10 +274,12 @@ class Trainer:
         model = build_model(self.cfg.model, self.num_bands)
         model.load_state_dict(flax_to_torch(variables))
         model.to(self.device).train()
-        ema = None
-        if self.cfg.train.ema_decay > 0.0:
-            ema = {n: p.detach().clone() for n, p in model.named_parameters()}
-        return TrainState(model, make_optimizer(self.cfg, model), 0, ema)
+        return _new_state(self.cfg, model)
+
+    def reseed_samplers(self, salt: int) -> None:
+        """Resume support: fold the restart iteration into the sampler's
+        position stream (BalancedPatchSampler.reseed), as the reference."""
+        self.sampler.reseed(salt)
 
     def _step_impl(self, state: TrainState, positions: torch.Tensor,
                    aug_ids: torch.Tensor, size: int,

@@ -1,6 +1,6 @@
 """dynseg_torch's CUDA kernels on the card: K5 (csrc/int8_block_conv.cu),
-K2 (csrc/patch_gather.cu) and K4 (csrc/pool_bwd.cu) against their plain
-PyTorch versions, and the int8 serving path and a train step on the card
+K2 (csrc/patch_gather.cu), K4 (csrc/pool_bwd.cu) and P1
+(csrc/int8_conv3x3.cu) against their plain PyTorch versions, and the int8 serving path and a train step on the card
 against the same on the CPU. Marked `gpu`; every test skips where
 torch.cuda.is_available() is false. On a machine with a card and without
 JAX (these tests import none), run
@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from dynseg_torch.ops import gather, int8_conv, pool
+from dynseg_torch.ops import gather, int8_conv, int8_probe_conv, pool
 
 pytestmark = pytest.mark.gpu
 
@@ -204,3 +204,39 @@ def test_train_step_on_card_matches_cpu(cuda):
     for k, v in out["cpu"][1].items():
         np.testing.assert_allclose(out["cuda"][1][k].numpy(), v.numpy(),
                                    rtol=0, atol=1e-6, err_msg=k)
+
+
+# P1's (B, H, W, C, dilation): the TPU probe's check shapes, then ragged
+# ones: odd H and W, B 3, C 32 and 160 (a half K chunk), dilations 1, 2,
+# 5, 6, a dilation wider than the image, and a 1 x 1 image.
+P1 = [
+    (2, 16, 16, 128, 2), (1, 32, 32, 128, 6), (3, 17, 23, 32, 1),
+    (3, 21, 15, 160, 2), (3, 19, 13, 32, 5), (3, 25, 11, 160, 6),
+    (1, 5, 7, 64, 6), (1, 1, 1, 32, 1),
+]
+
+
+@pytest.mark.parametrize("case", P1, ids=lambda c: "x".join(map(str, c)))
+def test_p1_kernel_matches_plain_bitwise(cuda, case):
+    b, h, w, c, dil = case
+    rng = np.random.default_rng(sum(case))
+    x = torch.from_numpy(rng.integers(-128, 128, (b, h, w, c), dtype=np.int8)).to(cuda)
+    wt = torch.from_numpy(rng.integers(-128, 128, (3, 3, c, c), dtype=np.int8)).to(cuda)
+    for scale in (1 / 512, 64.0 / (np.sqrt(9 * c) * 73.9 ** 2)):
+        before = int8_probe_conv.launches
+        got = int8_probe_conv.int8_conv3x3_requant(x, wt, scale, dil)
+        assert int8_probe_conv.launches == before + 1
+        want = int8_probe_conv.int8_conv3x3_requant_ref(x, wt, scale, dil)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.int8 and got.shape == x.shape
+        assert torch.equal(got, want)
+    if h * w > 1:  # 1/512 saturates: both bounds are exercised
+        got = int8_probe_conv.int8_conv3x3_requant(x, wt, 1 / 512, dil)
+        assert (got == -128).any() and (got == 127).any()
+
+
+def test_p1_kernel_refuses_strided_input(cuda):
+    x = torch.zeros((1, 8, 8, 64), dtype=torch.int8, device=cuda)[..., ::2]
+    w = torch.zeros((3, 3, 32, 32), dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        int8_probe_conv.int8_conv3x3_requant(x, w, 0.5, 1)

@@ -97,7 +97,7 @@ def test_float_validate_test_matches_reference(tiles96, mode):
         _assert_probs_and_labels(pt, prob_t, pj, prob_j)
 
     lines = []
-    got = infer.validate_test(cfg, sd, tiles96, log=lines.append)
+    got = infer.validate_test(cfg, sd, tiles96, "cpu", log=lines.append)
     want = jax_infer.validate_test(cfg, variables, tiles96, log=lambda *_: None)
     assert abs(got["oa"] - want["oa"]) <= 1e-4
     assert abs(got["kappa"] - want["kappa"]) <= 1e-4
@@ -112,7 +112,7 @@ def test_float_validate_test_matches_reference(tiles96, mode):
 def test_eroded_scores_and_confusion(tiles96):
     cfg = _cfg(eroded_boundary_radius=2)
     got = infer.validate_test(cfg, flax_to_torch(_variables(cfg, tiles96)), tiles96,
-                              log=lambda *_: None)
+                              "cpu", log=lambda *_: None)
     gt = tiles96.masks[0, :96, :96]
     pred = got["predictions"][0]
     from dynseg.metrics import erode_boundaries, scores_from_confusion
@@ -132,7 +132,7 @@ def test_int8_validate_test_matches_reference():
     cfg = _cfg(quant="int8", width=1.0)
     variables = _variables(cfg, tiles, seed=3)
     lines = []
-    got = infer.validate_test(cfg, flax_to_torch(variables), tiles,
+    got = infer.validate_test(cfg, flax_to_torch(variables), tiles, "cpu",
                               log=lines.append)
     want = jax_infer.validate_test(cfg, variables, tiles, log=lambda *_: None)
     assert lines[0].startswith(

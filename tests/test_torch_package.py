@@ -13,10 +13,30 @@ from dynseg_torch.ops import gather, int8_conv, pool
 def test_package_imports_no_jax():
     code = ("import sys, dynseg_torch, dynseg_torch.infer, dynseg_torch.ops.quant, "
             "dynseg_torch.bridge, dynseg_torch.train, dynseg_torch.cli, "
-            "dynseg_torch.ops.gather, dynseg_torch.ops.pool; "
+            "dynseg_torch.ops.gather, dynseg_torch.ops.pool, dynseg_torch.checkpoint, "
+            "dynseg_torch.ops.int8_probe_conv, dynseg_torch.probes.int8_kernel_probe; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax')); "
             "assert not bad, bad; "
             "assert 'dynseg_torch.ops._build' not in sys.modules")
+    subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
+
+
+def test_command_line_imports_no_jax():
+    """An operation driven through dynseg_torch.cli.main (check_data, the
+    host-only one) and the parser's --help import no jax either."""
+    code = "\n".join([
+        "import contextlib, io, sys",
+        "from dynseg_torch.cli import main",
+        "rc = main(['--operation', 'check_data', '--dataset', 'synthetic',",
+        "           '--dataset_kwargs', '{\"size\": 32}', '--values', '9'])",
+        "assert rc == 0, rc",
+        "out = io.StringIO()",
+        "with contextlib.redirect_stdout(out), contextlib.suppress(SystemExit):",
+        "    main(['--help'])",
+        "assert '--device' in out.getvalue()",
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax'))",
+        "assert not bad, bad",
+    ])
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
 
 
