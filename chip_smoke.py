@@ -6,20 +6,23 @@
 Builds the port's CUDA kernels from dynseg_torch/csrc/, holds each against
 its plain PyTorch version on the card, then drives the port's two paths at
 the full width of dilated_icpr_rate6 with seeded random weights on
-synthetic tiles:
+synthetic tiles. The JAX package and JAX are made absent first (a
+meta-path finder refuses `dynseg`, `jax`, `flax` and `optax`): the port
+runs without them.
 
   1. the card's name and power limit, and the kernel build;
   2. K5 (int8_block_conv) kernel vs plain at the three quantized-block
      geometries of a dense batch (8 x 336^2, i.e. block 256 + halo 40):
-     int8 output bitwise equal, float32 output within 1e-5 * max|y|,
-     and the CUDA-event time of each;
+     each variant (wgmma, the serving path's; dp4a, PR 1's kernel) int8
+     output bitwise equal, float32 output within 1e-5 * max|y|, with its
+     CUDA-event time, TOPS and share of the bound;
   3. the serving path: a small tile through `validate_test` on the card
      and on the CPU (plain versions): the same answer; then the three
      timed runs (window float and window int8 on a 1024^2 tile, 5 scales
      25..65; dense int8 on a 2048^2 tile), with K5's launch count held to
-     3 per int8 forward;
+     3 per int8 forward, all of them the wgmma variant;
   4. K5 kernel vs plain, bitwise, on the int8 activations of one real
-     window batch;
+     window batch (256 windows of 65^2);
   5. K2 (gather_batch) kernel vs plain, bitwise, at B=100 for s in
      25..65 on uint8 tiles, every augment id and edge positions, and K4
      (pallas_pool_bwd) kernel vs plain, bitwise, at the pools of a
@@ -53,19 +56,23 @@ synthetic tiles:
      each run's K2/K4/K5 launches (its "kernel launches:" line) are held
      to the run; each run's output is in smoke_out/cli_<name>.log.
 
-With --profile DIR, it also traces one warm train step per pool backward
-with torch.profiler and writes the chrome traces and a kernel summary
-to DIR.
+With --profile DIR, it also traces one warm call of each serving run and
+one warm train step per pool backward with torch.profiler, and writes the
+chrome traces and a kernel summary (span, busy, idle share, time by
+kernel class) to DIR.
 
-The last two lines are a JSON object describing the kernels and
-{"ok": true, "device": {...}}. Exits non-zero, before printing a result,
-when there is no CUDA device or any check fails. Imports no JAX.
+The last three lines are a JSON object describing the kernels (with each
+one's bound: the larger of its operations over the card's peak and its
+bytes over the memory rate, at this run's shapes), the card's name and
+power limit, and {"ok": true, "device": {...}}. Exits non-zero, before
+printing a result, when there is no CUDA device or any check fails.
 """
 
 from __future__ import annotations
 
 import argparse
 import collections
+import importlib.abc
 import json
 import math
 import os
@@ -76,6 +83,19 @@ import time
 
 import numpy as np
 import torch
+
+
+class _Absent(importlib.abc.MetaPathFinder):
+    """The JAX package and JAX itself are absent here: importing them
+    fails as it would on a machine without them."""
+
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("dynseg", "jax", "flax", "optax"):
+            raise ModuleNotFoundError(f"No module named {name!r}", name=name)
+        return None
+
+
+sys.meta_path.insert(0, _Absent())
 
 KERNEL_SOURCE = "dynseg_torch/csrc/int8_block_conv.cu"
 KERNEL_REPLACES = "dynseg/ops/pallas_conv.py:59"
@@ -105,6 +125,9 @@ P1_SHAPES = ((2, 16, 16, 128, 2), (1, 32, 32, 128, 6), (3, 17, 23, 32, 1),
              (3, 21, 15, 160, 2), (3, 19, 13, 32, 5), (3, 25, 11, 160, 6),
              (8, 592, 592, 256, 6))
 PROBE_REPS = 5
+# The H100 SXM's published dense peaks: int8 tensor-core operations, float32
+# outside the tensor cores, and the memory rate (bytes/s).
+INT8_PEAK, F32_PEAK, HBM_RATE = 1979e12, 67e12, 3.35e12
 # The command line: iterations of the first training run and of the resume.
 CLI_NITER, CLI_RESUME_NITER, CLI_EVERY = 40, 60, 20
 
@@ -126,12 +149,26 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def bound_ms(ops: float, nbytes: float, peak: float):
+    """The least time the card could take: operations over `peak` or bytes
+    over the memory rate, whichever is larger; and which one it is."""
+    t_ops, t_bytes = ops / peak * 1e3, nbytes / HBM_RATE * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def bound_totals(bounds: collections.Counter) -> dict:
+    """The bound of a kernel over several shapes: the sum of theirs, set
+    by whichever of operations or bytes bounds the larger part of it."""
+    return {"bound_ms": sum(bounds.values()), "bound_by": bounds.most_common(1)[0][0]}
+
+
 def check_kernel_geometries(int8_conv) -> dict:
-    """Phase 2: kernel vs plain on random int8 data at the slice's shapes."""
+    """Phase 2: each K5 variant vs plain on random int8 data at the slice's
+    shapes, timed; the serving path's variant (wgmma) sets the totals."""
     rng = np.random.default_rng(0)
     dev = torch.device(DEVICE)
     bsz, ext = DENSE_BATCH, DENSE_EXT
-    total_ms = total_plain = 0.0
+    total, bounds = collections.Counter(), collections.Counter()
     worst = 0.0
     for name, cin, cout, k, dil, requant in GEOMETRIES:
         # Codes shaped like calibrated activations and per-channel
@@ -146,33 +183,52 @@ def check_kernel_geometries(int8_conv) -> dict:
                 torch.from_numpy(b.astype(np.float32)).to(dev))
         kw = dict(dilation=dil, leaky_slope=0.1,
                   out_scale=3.0 / 127 if requant else None)
-        got = int8_conv.int8_block_conv(*args, **kw)
+        pc = int8_conv.pack_conv(*args[1:], **kw)
+        xq = args[0]
+        if int8_conv.variant_for(cin, cout, k, dil) != "wgmma":
+            raise SystemExit(f"K5 {name}: the serving block does not take wgmma")
         want = int8_conv.int8_block_conv_ref(*args, **kw)
-        torch.cuda.synchronize()
-        if requant:
-            diff = (got.int() - want.int()).abs().max().item()
-            clipped = (want.abs() == 127).float().mean().item()
-            ok = diff == 0
-            detail = f"int8 out, {clipped:.4f} of codes clipped"
-        else:
-            diff = (got - want).abs().max().item()
-            bound = 1e-5 * want.abs().max().item()
-            ok = diff <= bound
-            detail = f"f32 out, bound {bound:.3e}"
-        ms = time_ms(lambda: int8_conv.int8_block_conv(*args, **kw), 10)
-        plain = time_ms(lambda: int8_conv.int8_block_conv_ref(*args, **kw), 3)
         macs = bsz * ext * ext * k * k * cin * cout
+        out_bytes = want.numel() * want.element_size()
+        bound, bound_by = bound_ms(2.0 * macs, xq.numel() + pc.w.numel() + out_bytes
+                                   + 8 * cout, INT8_PEAK)
+        times = {}
+        for variant, reps in (("wgmma", 20), ("dp4a", 5)):
+            got = int8_conv.int8_block_conv_packed(xq, pc, variant)
+            torch.cuda.synchronize()
+            if requant:
+                diff = (got.int() - want.int()).abs().max().item()
+                ok = diff == 0
+            else:
+                diff = (got - want).abs().max().item()
+                ok = diff <= 1e-5 * want.abs().max().item()
+            if not ok:
+                raise SystemExit(f"K5 {name} {variant}: kernel disagrees with plain ({diff})")
+            worst = max(worst, float(diff))
+            times[variant] = time_ms(
+                lambda: int8_conv.int8_block_conv_packed(xq, pc, variant), reps)
+            del got
+        # The public entry packs per call; the serving path packs once.
+        public = int8_conv.int8_block_conv(*args, **kw)
+        if not torch.equal(public, int8_conv.int8_block_conv_packed(xq, pc)):
+            raise SystemExit(f"K5 {name}: int8_block_conv differs from the packed entry")
+        plain = time_ms(lambda: int8_conv.int8_block_conv_packed_ref(xq, pc), 3)
+        detail = (f"int8 out, {(want.abs() == 127).float().mean().item():.4f} of codes "
+                  f"clipped" if requant else f"f32 out, max|y| {want.abs().max().item():.3g}")
         log(f"K5 {name} {cin}->{cout} k{k} d{dil} x({bsz},{ext},{ext},{cin}): "
-            f"max|kernel-plain|={diff} ({detail}) kernel {ms:.3f} ms "
-            f"({2 * macs / ms / 1e9:.1f} TOPS) plain {plain:.3f} ms")
-        if not ok:
-            raise SystemExit(f"K5 {name}: kernel disagrees with plain ({diff})")
-        worst = max(worst, float(diff))
-        total_ms += ms
-        total_plain += plain
-        del args, got, want
+            f"every variant == plain ({detail}); bound {bound:.4f} ms ({bound_by}: "
+            f"{2 * macs:.3e} ops)")
+        for variant, ms in times.items():
+            tag = {"wgmma": "serving path", "dp4a": "PR 1's kernel"}[variant]
+            log(f"    {variant:8s} ({tag}): {ms:.4f} ms, {2 * macs / ms / 1e9:.1f} TOPS, "
+                f"{bound / ms:.3f} of the bound")
+        log(f"    plain: {plain:.3f} ms; wgmma vs dp4a {times['dp4a'] / times['wgmma']:.2f}x")
+        total.update(ms=times["wgmma"], plain_ms=plain)
+        bounds[bound_by] += bound
+        del args, want, pc, xq, public
     torch.cuda.empty_cache()
-    return {"max_abs_err": worst, "ms": total_ms, "plain_ms": total_plain}
+    return {"max_abs_err": worst, "ms": total["ms"], "plain_ms": total["plain_ms"],
+            **bound_totals(bounds)}
 
 
 def seeded_weights(cfg, bands: int) -> dict:
@@ -192,7 +248,7 @@ def seeded_weights(cfg, bands: int) -> dict:
 
 
 def config(mode: str, quant: str, scales=SCALES):
-    from dynseg.config import Config, InferConfig, ModelConfig
+    from dynseg_torch.config import Config, InferConfig, ModelConfig
 
     return Config(
         model=ModelConfig(net_type="dilated_icpr_rate6", num_classes=2,
@@ -232,7 +288,7 @@ def expected_forwards(cfg, tiles) -> int:
 def check_against_cpu(weights) -> None:
     """Phase 3a: one small tile through the whole path on the card and on
     the CPU, where every op is a plain PyTorch version."""
-    from dynseg.data.datasets import load_synthetic
+    from dynseg_torch.data.datasets import load_synthetic
     from dynseg_torch.infer import Inferencer
 
     tiles = load_synthetic(seed=2, num_tiles=2, size=SMALL_TILE)[1]
@@ -260,7 +316,7 @@ def check_against_cpu(weights) -> None:
 
 def run_slice(weights, int8_conv, card: str) -> dict:
     """Phase 3b: the three timed validate_test runs."""
-    from dynseg.data.datasets import load_synthetic
+    from dynseg_torch.data.datasets import load_synthetic
     from dynseg_torch.infer import validate_test
 
     t0 = time.perf_counter()
@@ -271,7 +327,7 @@ def run_slice(weights, int8_conv, card: str) -> dict:
             ("window int8", config("window", "int8"), tiles1k),
             ("dense int8", config("dense", "int8"), tiles2k))
     int8_forwards = 0
-    int8_conv.launches = 0
+    int8_conv.reset_launches()
     for name, cfg, tiles in runs:
         t0 = time.perf_counter()
         scores = validate_test(cfg, weights, tiles, DEVICE, log=lambda *_: None)
@@ -292,16 +348,19 @@ def run_slice(weights, int8_conv, card: str) -> dict:
             f"call wall {wall:.3f} s, {fw} forwards [{card}]")
     launches = int8_conv.launches
     log(f"K5 launches on the main path: {launches} "
-        f"(3 quantized blocks x {int8_forwards} int8 forwards)")
+        f"(3 quantized blocks x {int8_forwards} int8 forwards), by variant "
+        f"{int8_conv.variant_launches}")
     if launches == 0 or launches != 3 * int8_forwards:
         raise SystemExit("K5 launch count does not match the int8 forwards")
-    return {"launches": launches}
+    if int8_conv.variant_launches["wgmma"] != launches:
+        raise SystemExit("K5: a serving block did not take the wgmma variant")
+    return {"launches": launches, "runs": runs}
 
 
 def check_real_activations(weights, int8_conv) -> None:
     """Phase 4: capture K5's inputs in one real window batch, then hold
     each captured launch against the plain version."""
-    from dynseg.data.datasets import load_synthetic
+    from dynseg_torch.data.datasets import load_synthetic
     from dynseg_torch.infer import Inferencer
     from dynseg_torch.ops import quant
 
@@ -310,25 +369,26 @@ def check_real_activations(weights, int8_conv) -> None:
     qsd = inf.enable_quant(weights)
     captured = []
 
-    def capture(*args, **kw):
-        out = int8_conv.int8_block_conv(*args, **kw)
-        captured.append((args, kw, out))
+    def capture(x, pc, variant=None):
+        out = int8_conv.int8_block_conv_packed(x, pc, variant)
+        captured.append((x, pc, out))
         return out
 
-    quant.int8_block_conv = capture
+    quant.int8_block_conv_packed = capture
     try:
         origins = np.stack(np.meshgrid(np.arange(0, 256, 16),
                                        np.arange(0, 256, 16)), -1).reshape(-1, 2)
         inf._probs(qsd, inf.images[0], origins, 65)
     finally:
-        quant.int8_block_conv = int8_conv.int8_block_conv
+        quant.int8_block_conv_packed = int8_conv.int8_block_conv_packed
     if len(captured) != 3:
         raise SystemExit(f"expected 3 K5 launches, captured {len(captured)}")
-    for i, (args, kw, out) in enumerate(captured):
-        want = int8_conv.int8_block_conv_ref(*args, **kw)
+    for i, (x, pc, out) in enumerate(captured):
+        want = int8_conv.int8_block_conv_packed_ref(x, pc)
         same = torch.equal(out, want)
-        log(f"real activations, block {3 + i} x{tuple(args[0].shape)} "
-            f"-> {out.dtype}: kernel == plain bitwise: {same}")
+        log(f"real activations, block {3 + i} x{tuple(x.shape)} "
+            f"-> {out.dtype} ({pc.variant}): "
+            f"kernel == plain bitwise: {same}")
         if not same:
             raise SystemExit(f"block {3 + i}: kernel disagrees on real data")
 
@@ -342,7 +402,7 @@ def check_gather_kernel(gather) -> dict:
     masks = torch.from_numpy(rng.integers(0, 2, (t_n, h, w), dtype=np.uint8)).to(dev)
     mean = torch.tensor([120.0, 110.5, 99.25], device=dev)
     std = torch.tensor([40.0, 37.3, 51.7], device=dev)
-    total_ms = total_plain = 0.0
+    total, bounds = collections.Counter(), collections.Counter()
     for s in SCALES:
         half = s // 2
         pos = np.stack([rng.integers(0, t_n, TRAIN_BATCH),
@@ -364,9 +424,17 @@ def check_gather_kernel(gather) -> dict:
             f"bitwise: {same}; kernel {ms:.4f} ms plain {plain:.4f} ms")
         if not same:
             raise SystemExit(f"K2 s={s}: kernel disagrees with plain")
-        total_ms += ms
-        total_plain += plain
-    return {"max_abs_err": 0.0, "ms": total_ms, "plain_ms": total_plain}
+        # Read: the windows' u8 pixels and labels, positions and augment
+        # ids; written: f32 patches and int64 labels. Two operations a
+        # value (subtract the mean, scale by 1/std).
+        px = TRAIN_BATCH * s * s
+        bound, bound_by = bound_ms(2.0 * px * c, px * c + px + 16 * TRAIN_BATCH
+                                   + 4 * px * c + 8 * px, F32_PEAK)
+        log(f"    bound {bound:.5f} ms ({bound_by}), {bound / ms:.3f} of it")
+        total.update(ms=ms, plain_ms=plain)
+        bounds[bound_by] += bound
+    return {"max_abs_err": 0.0, "ms": total["ms"], "plain_ms": total["plain_ms"],
+            **bound_totals(bounds)}
 
 
 def check_pool_kernel(pool) -> dict:
@@ -374,7 +442,7 @@ def check_pool_kernel(pool) -> dict:
     Values on a 1/16 grid give the plateaus of stacked pools (ties)."""
     rng = np.random.default_rng(6)
     dev = torch.device(DEVICE)
-    total_ms = total_plain = 0.0
+    total, bounds = collections.Counter(), collections.Counter()
     for s in (25, 65):
         for c in (64, 128, 256):
             shape = (TRAIN_BATCH, s, s, c)
@@ -395,17 +463,22 @@ def check_pool_kernel(pool) -> dict:
                 f"({gb / ms * 1e3:.0f} GB/s at 8 tensor passes) plain {plain:.4f} ms")
             if not same:
                 raise SystemExit(f"K4 {shape}: kernel disagrees with plain")
-            total_ms += ms
-            total_plain += plain
+            # x, y, g read and dx written once; a compare and an add per
+            # tap in each of the two passes.
+            bound, bound_by = bound_ms(2 * 2 * 9.0 * x.numel(), 4 * 4 * x.numel(), F32_PEAK)
+            log(f"    bound {bound:.4f} ms ({bound_by}), {bound / ms:.3f} of it")
+            total.update(ms=ms, plain_ms=plain)
+            bounds[bound_by] += bound
             del x, y, g, got, want
     torch.cuda.empty_cache()
-    return {"max_abs_err": 0.0, "ms": total_ms, "plain_ms": total_plain}
+    return {"max_abs_err": 0.0, "ms": total["ms"], "plain_ms": total["plain_ms"],
+            **bound_totals(bounds)}
 
 
 def train_config(pool_backward: str, niter: int, ema: bool, width: float = 1.0,
                  scales=SCALES, batch: int = TRAIN_BATCH):
-    from dynseg.config import (Config, DataConfig, InferConfig, ModelConfig,
-                               SchedulerConfig, TrainConfig)
+    from dynseg_torch.config import (Config, DataConfig, InferConfig,
+                                     ModelConfig, SchedulerConfig, TrainConfig)
 
     return Config(
         model=ModelConfig(net_type="dilated_icpr_rate6", num_classes=2,
@@ -423,7 +496,7 @@ def train_config(pool_backward: str, niter: int, ema: bool, width: float = 1.0,
 
 def check_train_step_against_cpu() -> None:
     """Phase 6: one train step on the card and on the CPU."""
-    from dynseg.data.datasets import load_synthetic
+    from dynseg_torch.data.datasets import load_synthetic
     from dynseg_torch.train import Trainer
 
     cfg = train_config("pallas", 1, False, width=0.25, scales=(25,), batch=8)
@@ -504,8 +577,8 @@ def run_training_slice(gather, pool, card: str) -> dict:
 def check_train_real_activations(gather, pool) -> None:
     """Phase 8: capture K2's and K4's inputs in one real full-width train
     step at 65 px, then hold each captured launch against plain."""
-    from dynseg.data.datasets import load_synthetic
     from dynseg_torch import train
+    from dynseg_torch.data.datasets import load_synthetic
     from dynseg_torch.ops import pool as pool_mod
 
     cfg = train_config("pallas", 1, False)
@@ -568,11 +641,13 @@ def check_p1_kernel(p1) -> dict:
     ms = time_ms(lambda: p1.int8_conv3x3_requant(x, wt, scale, dil), 10)
     plain = time_ms(lambda: p1.int8_conv3x3_requant_ref(x, wt, scale, dil), 2)
     ops = 2.0 * b * h * w * 9 * c * c
-    log(f"P1 at the probe's shape: kernel {ms:.3f} ms ({ops / ms / 1e9:.1f} TOPS) "
-        f"plain {plain:.3f} ms")
+    bound, bound_by = bound_ms(ops, 2 * x.numel() + wt.numel(), INT8_PEAK)
+    log(f"P1 at the probe's shape: kernel {ms:.3f} ms ({ops / ms / 1e9:.1f} TOPS, "
+        f"{bound / ms:.3f} of the bound {bound:.4f} ms, {bound_by}) plain {plain:.3f} ms")
     del x, wt, got, want
     torch.cuda.empty_cache()
-    return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain}
+    return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain, "bound_ms": bound,
+            "bound_by": bound_by}
 
 
 def run_probe(p1) -> int:
@@ -605,8 +680,8 @@ def run_cli(card: str) -> dict:
     int8 testing, predict and info."""
     from PIL import Image
 
-    from dynseg.data.datasets import load_dataset
     from dynseg_torch import cli
+    from dynseg_torch.data.datasets import load_dataset
 
     root = os.path.dirname(os.path.abspath(__file__))
     out = os.path.join(root, OUT_DIR, "cli")
@@ -737,13 +812,61 @@ def run_cli(card: str) -> dict:
     return {"walls": walls, "k5": k5, "differ": differ}
 
 
+def kernel_class(event: dict) -> str:
+    """A device event's class in the serving summaries."""
+    if event["cat"] != "kernel":
+        return "copies"
+    n = event["name"].lower()
+    for cls, keys in (("K5", ("k5_",)), ("max-pool", ("max_pool",)), ("BN", ("bn_fw",)),
+                      ("transposes", ("nchwtonhwc", "nhwctonchw")),
+                      ("cuDNN conv", ("xmma", "implicit_gemm", "conv", "cudnn")),
+                      ("softmax", ("softmax",)), ("fold", ("col2im", "im2col")),
+                      ("sort (calibration)", ("radixsort", "sort")),
+                      ("casts", ("copy_kernel",)), ("reductions", ("reduce",)),
+                      ("elementwise", ("elementwise",))):
+        if any(k in n for k in keys):
+            return cls
+    return "other"
+
+
+def profile_serving(out_dir: str, weights, runs) -> None:
+    """--profile: torch.profiler over one warm validate_test call of each
+    serving run (the span includes int8 calibration); chrome traces, the
+    device's busy time and idle share, and device time by kernel class."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from dynseg_torch.infer import validate_test
+
+    os.makedirs(out_dir, exist_ok=True)
+    for name, cfg, tiles in runs:
+        validate_test(cfg, weights, tiles, DEVICE, log=lambda *_: None)  # warm
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            validate_test(cfg, weights, tiles, DEVICE, log=lambda *_: None)
+            torch.cuda.synchronize()
+            span = time.perf_counter() - t0
+        trace = os.path.join(out_dir, f"serving_{name.replace(' ', '_')}.json")
+        prof.export_chrome_trace(trace)
+        with open(trace) as f:
+            events = [e for e in json.load(f)["traceEvents"]
+                      if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+        busy = sum(e["dur"] for e in events) / 1e6
+        by_class = collections.Counter()
+        for e in events:
+            by_class[kernel_class(e)] += e["dur"] / 1e6
+        log(f"profile serving {name}: span {span:.4f} s, device busy {busy:.4f} s, "
+            f"idle share {1 - busy / span:.3f}; " + ", ".join(
+                f"{cls} {s:.4f} s ({s / busy:.3f})" for cls, s in by_class.most_common()))
+
+
 def profile_train_steps(out_dir: str) -> None:
     """--profile: torch.profiler over one warm full-width train step per
     pool backward at 25 and 65 px; chrome traces and kernel sums."""
     from torch.profiler import ProfilerActivity, profile
 
-    from dynseg.data.datasets import load_synthetic
     from dynseg_torch import train
+    from dynseg_torch.data.datasets import load_synthetic
 
     os.makedirs(out_dir, exist_ok=True)
     tiles = load_synthetic(seed=0, num_tiles=4, size=TRAIN_TILE)[0]
@@ -777,7 +900,7 @@ def profile_train_steps(out_dir: str) -> None:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", metavar="DIR",
-                        help="also trace warm train steps into DIR")
+                        help="also trace the serving runs and warm train steps into DIR")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -806,6 +929,9 @@ def main() -> int:
     check_against_cpu(weights)
     k5.update(run_slice(weights, int8_conv, card))
     check_real_activations(weights, int8_conv)
+    if args.profile:
+        profile_serving(args.profile, weights, k5.pop("runs"))
+    k5.pop("runs", None)
     del weights
     torch.cuda.empty_cache()
 
@@ -825,10 +951,14 @@ def main() -> int:
     run_cli(card)
 
     def entry(name, source, replaces, k):
+        # library_ms: no single PyTorch call computes any of the four
+        # functions (no CUDA int8 conv; ATen's max-pool backward routes a
+        # tie to the first max; the gather fuses crop, normalise and labels).
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": k["launches"],
                 "max_abs_err": k["max_abs_err"], "ms": k["ms"],
-                "plain_ms": k["plain_ms"]}
+                "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+                "bound_by": k["bound_by"], "library_ms": None}
 
     print(json.dumps({"kernels": [
         entry("int8_block_conv", KERNEL_SOURCE, KERNEL_REPLACES, k5),

@@ -21,10 +21,14 @@ the name of its `dynseg` counterpart so that a reader finds both halves:
                       of dynseg's checkpoints;
   * `cli`, `__main__` `python -m dynseg_torch`, the reference's flags plus
                       `--device`;
-  * `probes`          `python -m dynseg_torch.probes.int8_kernel_probe`.
+  * `probes`          `python -m dynseg_torch.probes.int8_kernel_probe`;
+  * `config`, `data`, `sched`, `viz`, `utils.logging`: the port's own
+                      copies of the JAX package's host-side numpy modules
+                      (with `native/position_tables.cc`), held to the
+                      originals by tests/test_torch_data.py.
 
-The package imports torch and numpy, plus the numpy-only modules of
-`dynseg` (config, data.*, sched, viz, ops.dihedral); never jax.
+The package imports torch and numpy, and nothing of the JAX package: it
+runs on a machine where `dynseg`, jax, flax and optax are absent.
 Kernels are compiled at their first launch, never at import.
 """
 

@@ -28,7 +28,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from dynseg.config import ModelConfig
+from dynseg_torch.config import ModelConfig
 
 # Flax BatchNorm_0 leaf -> torch bn leaf, for params and for batch_stats.
 _BN = {"scale": "weight", "bias": "bias"}

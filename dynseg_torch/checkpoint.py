@@ -30,7 +30,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from dynseg.sched.scheduler import ScaleScheduler
+from dynseg_torch.sched.scheduler import ScaleScheduler
 from dynseg_torch.train import (TrainState, Trainer, checkpoint_dict,
                                 init_state_template, load_checkpoint_dict)
 

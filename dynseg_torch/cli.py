@@ -42,10 +42,10 @@ from typing import List, Optional
 
 import numpy as np
 
-from dynseg import config as cfgmod
-from dynseg.config import (Config, DataConfig, InferConfig, ModelConfig,
-                           SchedulerConfig, TrainConfig)
-from dynseg.data.datasets import NUM_CLASSES, load_dataset
+from dynseg_torch import config as cfgmod
+from dynseg_torch.config import (Config, DataConfig, InferConfig,
+                                 ModelConfig, SchedulerConfig, TrainConfig)
+from dynseg_torch.data.datasets import NUM_CLASSES, load_dataset
 
 
 def parse_values(s) -> List[int]:
@@ -254,36 +254,6 @@ def _default_compute_dtype(args: argparse.Namespace) -> str:
     return "float32"
 
 
-def _validate(cfg: Config) -> Config:
-    """Config.validate(), whose --quant int8 feasibility check imports the
-    JAX package: the rest runs as it is and that check runs here on the
-    port's quant_plan, with the same messages."""
-    if cfg.infer.quant == "none":
-        return cfg.validate()
-    dataclasses.replace(cfg, infer=dataclasses.replace(cfg.infer, quant="none")).validate()
-    from dynseg_torch.ops.quant import quant_plan
-
-    def check(ok, msg):
-        if not ok:
-            raise ValueError(f"invalid config: {msg}")
-
-    check(cfg.infer.quant in ("none", "int8"),
-          f"quant {cfg.infer.quant!r} not in ('none', 'int8')")
-    check(not (cfg.infer.quant_exit
-               and cfg.model.net_type == "dilated_icpr_rate6_densely"),
-          "--quant_exit requires sequential wiring — the dense-concat "
-          "variant has no single exit stream (drop --quant_exit)")
-    check(any(quant_plan(cfg.model, cfg.model.num_input_bands,
-                         min_ch=cfg.infer.quant_min_ch)),
-          f"--quant int8 selects no blocks for "
-          f"{cfg.model.net_type} at width "
-          f"{cfg.model.width_multiplier} with --quant_min_ch "
-          f"{cfg.infer.quant_min_ch}: every layer is below the "
-          f"measured int8 win threshold — run without --quant or "
-          f"lower --quant_min_ch")
-    return cfg
-
-
 def config_from_args(args: argparse.Namespace) -> Config:
     values = parse_values(args.values)
     test_scales = parse_values(args.test_scales) if args.test_scales else values
@@ -364,7 +334,7 @@ def config_from_args(args: argparse.Namespace) -> Config:
             dataset_kwargs=args.dataset_kwargs,
         ),
     )
-    return _validate(cfg)
+    return cfg.validate()
 
 
 def _loader_kwargs(cfg: Config) -> dict:
@@ -551,7 +521,7 @@ def _fix_num_input_bands(cfg: Config, train_tiles) -> Config:
 def _fix_num_classes(cfg: Config, train_tiles, log=print) -> Config:
     """Widen the head when the loaded labels exceed the dataset's default
     class count."""
-    from dynseg.data.tiles import IGNORE_LABEL
+    from dynseg_torch.data.tiles import IGNORE_LABEL
 
     masks = np.asarray(train_tiles.masks)
     labeled = masks[masks != IGNORE_LABEL]
@@ -644,12 +614,12 @@ def _check_resumed_scheduler(cfg: Config, scheduler) -> None:
 
 def _save_maps(cfg: Config, scores: dict, test_tiles) -> None:
     if cfg.infer.save_prediction_maps:
-        from dynseg.viz import save_prediction_maps
+        from dynseg_torch.viz import save_prediction_maps
 
         save_prediction_maps(scores["predictions"], cfg.data.dataset,
                              cfg.train.output_path)
     if cfg.infer.save_error_maps:
-        from dynseg.viz import save_error_maps
+        from dynseg_torch.viz import save_error_maps
 
         save_error_maps(scores["predictions"], list(test_tiles.masks),
                         cfg.train.output_path)
@@ -691,12 +661,12 @@ def run_training(cfg: Config, log=print, keep_best: bool = False, *,
     would be served. Returns validate_test's scores plus "train_steps",
     the per-scale step times of the loop (Trainer.step_stats); a run
     stopped by SIGTERM/SIGINT returns {"preempted": True, "iteration"}."""
-    from dynseg.data.sampler import BalancedPatchSampler
-    from dynseg.sched.scheduler import ScaleScheduler
     from dynseg_torch.bridge import torch_to_flax
     from dynseg_torch.checkpoint import CheckpointManager
+    from dynseg_torch.data.sampler import BalancedPatchSampler
     from dynseg_torch.infer import validate_test
     from dynseg_torch.metrics import scores_from_confusion
+    from dynseg_torch.sched.scheduler import ScaleScheduler
     from dynseg_torch.train import Trainer, ema_variables, train_loop
 
     train_tiles, test_tiles = load_dataset(
@@ -795,9 +765,9 @@ def run_testing(cfg: Config, log=print, scales_from_scheduler: int = 0,
     """Restore the checkpoint in cfg.train.output_path onto `device` and
     score the test tiles, normalised with the training statistics of the
     stats sidecar."""
-    from dynseg.sched.scheduler import ScaleScheduler
     from dynseg_torch.checkpoint import CheckpointManager
     from dynseg_torch.infer import validate_test
+    from dynseg_torch.sched.scheduler import ScaleScheduler
     from dynseg_torch.train import Trainer, init_state_template
 
     scheduler = ScaleScheduler(cfg.sched, seed=cfg.train.seed)
@@ -849,12 +819,12 @@ def run_predict(cfg: Config, predict_path: str, log=print,
     files. predict_chunk > 0 loads that many rasters at a time, padded to
     512-px multiples; the Inferencer (and its int8 calibration, made on
     the first chunk) is reused across chunks."""
-    from dynseg.data.datasets import list_rasters, load_rasters, raster_names
-    from dynseg.sched.scheduler import ScaleScheduler
-    from dynseg.viz import save_prediction_maps
     from dynseg_torch.checkpoint import CheckpointManager
+    from dynseg_torch.data.datasets import list_rasters, load_rasters, raster_names
     from dynseg_torch.infer import Inferencer
+    from dynseg_torch.sched.scheduler import ScaleScheduler
     from dynseg_torch.train import init_state_template
+    from dynseg_torch.viz import save_prediction_maps
 
     ckpt = CheckpointManager(cfg.train.output_path)
     stats = ckpt.load_stats()
@@ -928,8 +898,8 @@ def run_info(cfg: Config, log=print, use_best: bool = False) -> dict:
     """The checkpoint's model card: architecture, parameter count,
     provenance, scheduler state and best-validation record. Reads the
     checkpoint on the CPU: it computes nothing."""
-    from dynseg.sched.scheduler import ScaleScheduler
     from dynseg_torch.checkpoint import CheckpointManager
+    from dynseg_torch.sched.scheduler import ScaleScheduler
     from dynseg_torch.train import init_state_template
 
     ckpt = CheckpointManager(cfg.train.output_path)
@@ -1009,7 +979,9 @@ def _launch_counts() -> str:
     versions run)."""
     from dynseg_torch.ops import gather, int8_conv, pool
 
-    return (f"kernel launches: int8_block_conv={int8_conv.launches} "
+    variants = " ".join(f"int8_block_conv.{v}={n}"
+                        for v, n in int8_conv.variant_launches.items())
+    return (f"kernel launches: int8_block_conv={int8_conv.launches} {variants} "
             f"patch_gather={gather.launches} pool_bwd={pool.launches}")
 
 
@@ -1019,7 +991,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     cfg = config_from_args(args)
     if args.operation == "check_data":
         # Host-only pre-flight: no device; non-zero exit on a bad dump.
-        from dynseg.data.check import check_data
+        from dynseg_torch.data.check import check_data
 
         report = check_data(
             cfg.data.dataset, cfg.data.dataset_path, fold=cfg.data.fold,
@@ -1035,7 +1007,7 @@ def main(argv: Optional[List[str]] = None) -> int:
             device = resolve_device(args.device)
         except (RuntimeError, ValueError) as e:
             raise SystemExit(f"dynseg_torch: {e}") from None
-    from dynseg.utils.logging import MetricLogger
+    from dynseg_torch.utils.logging import MetricLogger
 
     logger = MetricLogger(cfg.train.output_path)
     if cfg.infer.window_fold == "off":

@@ -26,9 +26,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from dynseg.config import Config
-from dynseg.data.tiles import (TileSet, fill_padded_context, mirror_pad,
-                               storage_dtype)
+from dynseg_torch.config import Config
+from dynseg_torch.data.tiles import (TileSet, fill_padded_context,
+                                     mirror_pad, storage_dtype)
 from dynseg_torch.metrics import (confusion_matrix, erode_boundaries,
                                   scores_from_confusion)
 from dynseg_torch.models.dilated import build_model, receptive_radius

@@ -15,7 +15,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from dynseg.data.tiles import IGNORE_LABEL
+from dynseg_torch.data.tiles import IGNORE_LABEL
 
 
 def confusion_matrix(preds: torch.Tensor, labels: torch.Tensor,

@@ -14,7 +14,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from dynseg.config import ModelConfig
+from dynseg_torch.config import ModelConfig
 from dynseg_torch.models.blocks import DilatedConvBlock, ScoreHead
 
 # (kernel, features, dilation, pool) per block; held equal to

@@ -46,8 +46,8 @@ def _bind(lib: ctypes.CDLL) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fn = lib.dynseg_int8_block_conv
     # x, w_packed, a, b, out, B, H, W, Cin, Cout, k, dilation, pad_lo,
-    # leaky, requant, inv_scale, stream
-    fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, f, i, f, p]
+    # leaky, requant, inv_scale, variant, stream
+    fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, f, i, f, i, p]
     fn.restype = ctypes.c_int
     fn = lib.dynseg_patch_gather
     # images, masks, mean, std, positions, aug, out_img, out_lab, B, T, H,

@@ -11,7 +11,10 @@ in its epilogue and its max-pool runs on the int8 codes.
 Every quantized block's conv goes through K5 (`ops.int8_conv`) with the
 dequant and BN folded into y = A*acc + B. That is the port's only int8
 route, whatever ModelConfig.quant_conv says: the reference's other route
-is XLA's int8 conv emitter, which has no counterpart here.
+is XLA's int8 conv emitter, which has no counterpart here. `pack_blocks`
+prepares K5's operands once per model (packed weights, A, B and the
+requant's 1/out_scale on the host), and `make_apply`'s forward reuses them,
+so no launch folds, packs or reads a scale back from the device.
 
 `variables` is the port's state_dict (see `bridge`); the forward takes and
 returns NHWC tensors and runs NCHW channels_last inside.
@@ -25,9 +28,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from dynseg.config import ModelConfig
+from dynseg_torch.config import ModelConfig
 from dynseg_torch.models.dilated import arch, to_nchw
-from dynseg_torch.ops.int8_conv import int8_block_conv
+from dynseg_torch.ops.int8_conv import (PackedConv, int8_block_conv_packed,
+                                       pack_conv)
 from dynseg_torch.ops.pool import pool_forward
 
 
@@ -91,33 +95,68 @@ def _pool_int8(y: torch.Tensor, window: int) -> torch.Tensor:
     return pool_forward(y.float(), window).to(torch.int8)
 
 
+def _fold(mcfg: ModelConfig, p: Dict[str, torch.Tensor]):
+    """A and B of a quantized block: the dequant sx*sw_c folded with BN or
+    the conv bias. sx is the block's act_scale, which is also the scale of
+    a streamed int8 input (the previous block's out_scale)."""
+    a = (p["act_scale"] * p["w_scale"]).float()
+    if mcfg.use_batch_norm:
+        g = torch.rsqrt(p["bn.running_var"].float() + 1e-5) * p["bn.weight"]
+        b = p["bn.bias"] - p["bn.running_mean"] * g
+        a = a * g
+    else:
+        b = p["conv.bias"]
+    return a, b
+
+
+def _out_scale(variables, specs: List[dict], i: int):
+    """The scale block i's output streams at in the sequential wiring: the
+    next block's act_scale (the exit's after the last block), None where
+    the next block runs in float."""
+    if i + 1 == len(specs):
+        return variables.get("exit.act_scale")
+    return variables.get(_prefix(specs[i + 1]) + ".act_scale")
+
+
+def pack_blocks(mcfg: ModelConfig, variables: Dict[str, torch.Tensor],
+                stream: bool = True) -> Dict[str, PackedConv]:
+    """K5's prepared operands of every quantized block, by block name.
+    With `stream` (the serving forward) a block of the sequential wiring
+    requantizes to its out_scale; without it (calibration) every block
+    outputs float32."""
+    specs = block_specs(mcfg, int(variables["blocks.0.conv.weight"].shape[1]))
+    packed = {}
+    for i, spec in enumerate(specs):
+        p = _block_params(variables, spec)
+        if "w_scale" not in p:
+            continue
+        out_scale = (_out_scale(variables, specs, i)
+                     if stream and not _dense_wired(mcfg) else None)
+        a, b = _fold(mcfg, p)
+        packed[spec["name"]] = pack_conv(
+            p["conv.weight"].permute(2, 3, 1, 0), a, b,
+            dilation=spec["dilation"], leaky_slope=mcfg.leaky_slope,
+            out_scale=out_scale)
+    return packed
+
+
 def _block_forward(mcfg: ModelConfig, spec: dict, p: Dict[str, torch.Tensor],
                    x: torch.Tensor, record: Optional[dict], calib_pct: float,
-                   in_scale=None, out_scale=None):
+                   pc: Optional[PackedConv] = None, in_scale=None,
+                   out_scale=None):
     """One conv block on an NCHW (channels_last) tensor. `p` holds the
-    block's entries with the "blocks.{i}." prefix stripped; a "w_scale"
-    entry marks it quantized. When `in_scale` is set, `x` is already int8
-    at that scale; when `out_scale` is set, the epilogue requantizes and
-    the pool runs on int8. Returns (y, carried_scale), where
-    carried_scale is out_scale iff y is int8."""
+    block's entries with the "blocks.{i}." prefix stripped; `pc`, its K5
+    operands, marks it quantized. When `in_scale` is set, `x` is already
+    int8 at that scale; when `out_scale` is set, the epilogue requantizes
+    (`pc` was packed with it) and the pool runs on int8. Returns (y,
+    carried_scale), where carried_scale is out_scale iff y is int8."""
     if record is not None:
         # Calibration probe: this block's input range (float path only).
         record[spec["name"]] = _percentile(x.abs(), calib_pct)
     window = mcfg.pool_window if spec["pool"] else 0
-    if "w_scale" in p:
-        sx = in_scale if in_scale is not None else p["act_scale"]
-        xq = x if in_scale is not None else _quantize_act(x, sx)
-        a = (sx * p["w_scale"]).float()
-        if mcfg.use_batch_norm:
-            g = torch.rsqrt(p["bn.running_var"].float() + 1e-5) * p["bn.weight"]
-            b = p["bn.bias"] - p["bn.running_mean"] * g
-            a = a * g
-        else:
-            b = p["conv.bias"]
-        y = int8_block_conv(
-            xq.permute(0, 2, 3, 1), p["conv.weight"].permute(2, 3, 1, 0), a, b,
-            dilation=spec["dilation"], leaky_slope=mcfg.leaky_slope,
-            out_scale=out_scale).permute(0, 3, 1, 2)
+    if pc is not None:
+        xq = x if in_scale is not None else _quantize_act(x, p["act_scale"])
+        y = int8_block_conv_packed(xq.permute(0, 2, 3, 1), pc).permute(0, 3, 1, 2)
         if out_scale is not None:
             return (_pool_int8(y, window) if window else y), out_scale
         return (pool_forward(y, window) if window else y), None
@@ -145,8 +184,12 @@ def _block_params(variables: Dict[str, torch.Tensor], spec: dict) -> dict:
 
 def _forward(mcfg: ModelConfig, variables: Dict[str, torch.Tensor],
              x: torch.Tensor, record: Optional[dict] = None,
-             calib_pct: float = 99.9) -> torch.Tensor:
-    """(B, H, W, C) float32 -> (B, H, W, num_classes) float32 logits."""
+             calib_pct: float = 99.9,
+             packed: Optional[Dict[str, PackedConv]] = None) -> torch.Tensor:
+    """(B, H, W, C) float32 -> (B, H, W, num_classes) float32 logits.
+    `packed` is `pack_blocks(mcfg, variables)`, made here when not given."""
+    if packed is None:
+        packed = pack_blocks(mcfg, variables, stream=record is None)
     specs = block_specs(mcfg, x.shape[-1])
     h = to_nchw(x.float())
     carried = None  # h is int8 at this scale when set
@@ -158,19 +201,19 @@ def _forward(mcfg: ModelConfig, variables: Dict[str, torch.Tensor],
         for spec in specs:
             out, _ = _block_forward(
                 mcfg, spec, _block_params(variables, spec),
-                torch.cat(feats, dim=1), record, calib_pct)
+                torch.cat(feats, dim=1), record, calib_pct,
+                packed.get(spec["name"]))
             feats.append(out)
         h = torch.cat(feats[1:], dim=1)
     else:
         for i, spec in enumerate(specs):
-            nxt = (variables.get("exit.act_scale") if i + 1 == len(specs)
-                   else variables.get(_prefix(specs[i + 1]) + ".act_scale"))
             # Stream int8 only outside calibration (the probe must see
             # every block's float input).
-            out_scale = nxt if record is None else None
+            out_scale = _out_scale(variables, specs, i) if record is None else None
             h, carried = _block_forward(
                 mcfg, spec, _block_params(variables, spec), h, record,
-                calib_pct, in_scale=carried, out_scale=out_scale)
+                calib_pct, packed.get(spec["name"]), in_scale=carried,
+                out_scale=out_scale)
     if record is not None:
         record["__head__"] = _percentile(h.abs(), calib_pct)
     if carried is not None:
@@ -183,10 +226,16 @@ def _forward(mcfg: ModelConfig, variables: Dict[str, torch.Tensor],
 
 def make_apply(mcfg: ModelConfig):
     """An `apply_fn(variables, x)` over the port's state_dict: the int8
-    path for blocks that carry a "w_scale", the float mirror otherwise."""
+    path for blocks that carry a "w_scale", the float mirror otherwise.
+    K5's operands are prepared at the first call with a state_dict and
+    kept while the same dict object is passed; a new dict (not one edited
+    in place) is prepared anew."""
+    cache: dict = {}
 
     def apply_fn(variables, x):
-        return _forward(mcfg, variables, x)
+        if cache.get("variables") is not variables:
+            cache.update(variables=variables, packed=pack_blocks(mcfg, variables))
+        return _forward(mcfg, variables, x, packed=cache["packed"])
 
     return apply_fn
 

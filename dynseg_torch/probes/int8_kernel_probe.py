@@ -10,8 +10,8 @@ Four legs at the arithmetic of the serving block, a 3x3 dilation-6
       kernel);
   A2  torch._int_mm at M = 8 * hw * 74, K = N = 256: the same at the
       conv's contraction shape (also a library reference point);
-  B   K5 (dynseg_torch.ops.int8_conv.int8_block_conv, requant on), the
-      shipped int8 conv: dp4a on the integer pipes;
+  B   K5 (dynseg_torch.ops.int8_conv.int8_block_conv_packed, requant
+      on), the shipped int8 conv: its wgmma variant on the tensor cores;
   C   P1 (dynseg_torch.ops.int8_probe_conv.int8_conv3x3_requant): the
       probe's shifted-matmul conv on the tensor cores (mma.sync s8).
 
@@ -101,13 +101,14 @@ def _conv_inputs(batch: int, hw: int, c: int):
 
 
 def probe_k5(batch: int, hw: int, c: int, dil: int, reps: int, peak) -> dict:
-    from dynseg_torch.ops.int8_conv import int8_block_conv
+    from dynseg_torch.ops.int8_conv import int8_block_conv_packed, pack_conv
 
     x, w = _conv_inputs(batch, hw, c)
     a = torch.full((c,), 1.0 / 512.0, device="cuda")
     b = torch.zeros(c, device="cuda")
-    dt = time_s(lambda: int8_block_conv(x, w, a, b, dilation=dil,
-                                        leaky_slope=1.0, out_scale=1.0), reps)
+    # Operands packed once, as the serving path packs them.
+    pc = pack_conv(w, a, b, dilation=dil, leaky_slope=1.0, out_scale=1.0)
+    dt = time_s(lambda: int8_block_conv_packed(x, pc), reps)
     return _leg(2.0 * batch * hw * hw * 9 * c * c, dt, peak,
                 batch=batch, hw=hw, c=c, dil=dil)
 
@@ -170,7 +171,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         legs = (("A_int_mm_4096", "library", lambda: probe_matmul(4096, 4096, 4096, args.reps, peak)),
                 ("A2_int_mm_convshape", "library",
                  lambda: probe_matmul(8 * args.hw * 74, 256, 256, args.reps, peak)),
-                ("B_k5_int8_block_conv", "K5 dp4a",
+                ("B_k5_int8_block_conv", "K5 wgmma s8",
                  lambda: probe_k5(8, args.hw, 256, 6, args.reps, peak)),
                 ("C_p1_int8_conv3x3", "P1 mma.sync s8",
                  lambda: probe_p1(8, args.hw, 256, 6, args.reps, peak)))

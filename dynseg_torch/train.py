@@ -40,16 +40,17 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from dynseg.config import Config
-from dynseg.data.sampler import BalancedPatchSampler
-from dynseg.data.tiles import (IGNORE_LABEL, TileSet, fill_padded_context,
-                               mirror_pad, storage_dtype)
-from dynseg.sched.scheduler import ScaleScheduler
 from dynseg_torch.bridge import flax_to_torch, init_variables_np
+from dynseg_torch.config import Config
+from dynseg_torch.data.sampler import BalancedPatchSampler
+from dynseg_torch.data.tiles import (IGNORE_LABEL, TileSet,
+                                     fill_padded_context, mirror_pad,
+                                     storage_dtype)
 from dynseg_torch.metrics import (balanced_batch_accuracy, batch_accuracy,
                                   confusion_matrix)
 from dynseg_torch.models.dilated import build_model
 from dynseg_torch.ops.gather import gather_batch
+from dynseg_torch.sched.scheduler import ScaleScheduler
 
 Metrics = Dict[str, torch.Tensor]
 

@@ -12,12 +12,12 @@ import pytest
 import torch
 
 import dynseg.checkpoint as jax_checkpoint
-from dynseg.config import (Config, DataConfig, ModelConfig, SchedulerConfig,
-                           TrainConfig)
-from dynseg.data.datasets import load_synthetic
-from dynseg.sched.scheduler import ScaleScheduler
 from dynseg_torch import checkpoint, train
 from dynseg_torch.bridge import torch_to_flax
+from dynseg_torch.config import (Config, DataConfig, ModelConfig,
+                                 SchedulerConfig, TrainConfig)
+from dynseg_torch.data.datasets import load_synthetic
+from dynseg_torch.sched.scheduler import ScaleScheduler
 
 
 @pytest.fixture(autouse=True, scope="module")

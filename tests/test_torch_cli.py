@@ -20,11 +20,14 @@ import torch
 from PIL import Image
 
 import dynseg.cli as jax_cli
+import dynseg.config as jax_config
 from dynseg.config import SchedulerConfig
-from dynseg.data.datasets import load_synthetic
 from dynseg.sched.scheduler import ScaleScheduler
 from dynseg_torch import checkpoint, cli, train
+from dynseg_torch import config as port_config
+from dynseg_torch.data.datasets import load_synthetic
 from dynseg_torch.infer import Inferencer
+from dynseg_torch.sched import scheduler as port_scheduler
 
 DATA = ["--dataset", "synthetic", "--dataset_kwargs", '{"size": 48}',
         "--values", "9,13", "--window_batch", "64"]
@@ -72,6 +75,22 @@ def _copy(run_dir, tmp_path):
 # --------------------------------------------------------------------- #
 # pieces copied from dynseg.cli
 # --------------------------------------------------------------------- #
+def _as(mod, cfg):
+    """`cfg` rebuilt as the config dataclass of the same name in `mod`
+    (dynseg.config or dynseg_torch.config), from the same field values."""
+    vals = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
+    return getattr(mod, type(cfg).__name__)(**{
+        k: _as(mod, v) if dataclasses.is_dataclass(v) else v for k, v in vals.items()})
+
+
+def _plain(obj):
+    """A config of either package as its class name and field values, so
+    that the two packages' configs compare."""
+    if dataclasses.is_dataclass(obj):
+        return type(obj).__name__, dataclasses.asdict(obj)
+    return obj
+
+
 def _actions(parser):
     return {tuple(a.option_strings): (a.dest, a.default, a.choices, a.type,
                                       a.required, a.nargs, a.const, type(a).__name__)
@@ -125,7 +144,7 @@ def test_config_from_args_matches_reference(op):
     for argv in ARGVS:
         args = jax_cli.build_argparser().parse_args(["--operation", op] + argv)
         assert cli._default_compute_dtype(args) == jax_cli._default_compute_dtype(args)
-        assert cli.config_from_args(args) == jax_cli.config_from_args(args), argv
+        assert _plain(cli.config_from_args(args)) == _plain(jax_cli.config_from_args(args)), argv
 
 
 @pytest.mark.parametrize("argv", BAD, ids=lambda a: "_".join(a).strip("-"))
@@ -138,22 +157,25 @@ def test_config_errors_match_reference(argv):
     assert str(got.value) == str(want.value)
 
 
-def _scheduler(values, ckpt_values, **ckpt_kw):
-    donor = ScaleScheduler(SchedulerConfig(values=tuple(ckpt_values), **ckpt_kw), seed=0)
+def _scheduler(values, ckpt_values, sched=(SchedulerConfig, ScaleScheduler), **ckpt_kw):
+    config_cls, scheduler_cls = sched
+    donor = scheduler_cls(config_cls(values=tuple(ckpt_values), **ckpt_kw), seed=0)
     for v in ckpt_values:
         donor.update(v, loss=1.0, acc=0.5)
-    sch = ScaleScheduler(SchedulerConfig(values=tuple(values)), seed=0)
+    sch = scheduler_cls(config_cls(values=tuple(values)), seed=0)
     sch.load_state_dict(donor.state_dict())
     return sch
 
 
 def test_helpers_match_reference():
-    def both(fn_name, *args, **kw):
+    def both(fn_name, jax_args, port_args):
+        """The reference's helper on dynseg's configs and schedulers, the
+        port's on its own, built from the same values."""
         outs = []
-        for mod in (jax_cli, cli):
+        for mod, args in ((jax_cli, jax_args), (cli, port_args)):
             msgs = []
             try:
-                res = getattr(mod, fn_name)(*args, log=msgs.append, **kw)
+                res = _plain(getattr(mod, fn_name)(*args, log=msgs.append))
             except ValueError as e:
                 res = f"ValueError: {e}"
             outs.append((res, msgs))
@@ -172,23 +194,26 @@ def test_helpers_match_reference():
     for adopt in (False, True):
         for st in (stats, {"num_input_bands": 3, "num_classes": 2}):
             try:
-                want = jax_cli._adopt_checkpoint_model(cfg, st, adopt_net_type=adopt)
+                want = jax_cli._adopt_checkpoint_model(_as(jax_config, cfg), st,
+                                                       adopt_net_type=adopt)
             except ValueError as e:
                 with pytest.raises(ValueError, match="net_type") as got:
                     cli._adopt_checkpoint_model(cfg, st, adopt_net_type=adopt)
                 assert str(got.value) == str(e)
                 continue
-            assert cli._adopt_checkpoint_model(cfg, st, adopt_net_type=adopt) == want
+            got = cli._adopt_checkpoint_model(cfg, st, adopt_net_type=adopt)
+            assert type(got) is port_config.Config and _plain(got) == _plain(want)
     explicit = dataclasses.replace(cfg, infer=dataclasses.replace(
         cfg.infer, scales=(25, 45), scales_explicit=True))
-    for c, sch in ((cfg, _scheduler(cfg.sched.values, [9, 13])),
-                   (explicit, _scheduler(cfg.sched.values, [9, 13])),
-                   (cfg, _scheduler(cfg.sched.values, cfg.sched.values,
-                                    update_type="loss"))):
-        both("_reconcile_scales", c, sch)
+    port_sched = (port_config.SchedulerConfig, port_scheduler.ScaleScheduler)
+    for c, ckpt, kw in ((cfg, [9, 13], {}), (explicit, [9, 13], {}),
+                        (cfg, cfg.sched.values, {"update_type": "loss"})):
+        both("_reconcile_scales",
+             (_as(jax_config, c), _scheduler(c.sched.values, ckpt, **kw)),
+             (c, _scheduler(c.sched.values, ckpt, port_sched, **kw)))
     for st in ({"val_tiles": "11,15", "bands": "rgbir", "extra_bands": ""},
                {"dataset": "potsdam", "fold": 1}, {}):
-        both("_warn_protocol_mismatch", cfg, st)
+        both("_warn_protocol_mismatch", (_as(jax_config, cfg), st), (cfg, st))
 
 
 # --------------------------------------------------------------------- #

@@ -24,41 +24,77 @@ def cuda():
     return torch.device("cuda")
 
 
-# (B, H, W, Cin, Cout, k, dilation, requant): the slice's three block
-# geometries at batch 1, then ragged tiles: M not a multiple of 128,
-# Cout 192 and 68, Cin 144 (a partial K chunk), a 1 x 1 image; then the
-# byte-load variant: Cin 131 (the dense-wired net's block 2), 24, 3 and
-# Cout 30, 5.
+# (B, H, W, Cin, Cout, k, dilation, requant, variant): the slice's three
+# block geometries at batch 1 and as a window batch of 256 x 25^2, then
+# ragged tiles: M not a multiple of 128 (with Cout 256 and 192), Cin 144 (a
+# partial K chunk), a 1 x 1 image, Cin 48 with k 5; then the dp4a variant:
+# Cout 68 and 4, Cin 131 (the dense-wired net's block 2), 24, 3, Cout 30, 5.
 SHAPES = [
-    (1, 96, 96, 128, 128, 4, 4, True),
-    (1, 96, 96, 128, 256, 3, 5, True),
-    (1, 96, 96, 256, 256, 3, 6, False),
-    (3, 25, 25, 128, 192, 3, 5, True),
-    (1, 21, 17, 144, 68, 4, 4, False),
-    (2, 7, 130, 256, 256, 3, 6, True),
-    (1, 1, 1, 16, 4, 3, 2, False),
-    (2, 13, 10, 131, 128, 4, 3, True),
-    (1, 9, 11, 24, 30, 3, 2, True),
-    (1, 5, 7, 3, 5, 5, 1, False),
+    (1, 96, 96, 128, 128, 4, 4, True, "wgmma"),
+    (1, 96, 96, 128, 256, 3, 5, True, "wgmma"),
+    (1, 96, 96, 256, 256, 3, 6, False, "wgmma"),
+    (256, 25, 25, 128, 128, 4, 4, True, "wgmma"),
+    (256, 25, 25, 128, 256, 3, 5, True, "wgmma"),
+    (256, 25, 25, 256, 256, 3, 6, False, "wgmma"),
+    (3, 25, 25, 128, 192, 3, 5, True, "wgmma"),
+    (2, 7, 130, 256, 256, 3, 6, True, "wgmma"),
+    (1, 21, 17, 144, 64, 4, 4, False, "wgmma"),
+    (1, 1, 1, 16, 16, 3, 2, False, "wgmma"),
+    (2, 13, 11, 48, 32, 5, 1, True, "wgmma"),
+    (1, 21, 17, 144, 68, 4, 4, False, "dp4a"),
+    (1, 1, 1, 16, 4, 3, 2, False, "dp4a"),
+    (2, 13, 10, 131, 128, 4, 3, True, "dp4a"),
+    (1, 9, 11, 24, 30, 3, 2, True, "dp4a"),
+    (1, 5, 7, 3, 5, 5, 1, False, "dp4a"),
 ]
 
 
-@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
-def test_kernel_matches_plain_bitwise(cuda, shape):
-    b, h, w, cin, cout, k, dil, requant = shape
-    rng = np.random.default_rng(sum(shape))
+def _k5_case(cuda, shape):
+    b, h, w, cin, cout, k, dil, requant = shape[:8]
+    rng = np.random.default_rng(sum(shape[:8]))
     x = torch.from_numpy(rng.integers(-127, 128, (b, h, w, cin), dtype=np.int8)).to(cuda)
     wt = torch.from_numpy(rng.integers(-127, 128, (k, k, cin, cout), dtype=np.int8)).to(cuda)
     a = torch.from_numpy(rng.uniform(1e-6, 3e-6, cout).astype(np.float32)).to(cuda)
     bias = torch.from_numpy(rng.normal(0, 0.1, cout).astype(np.float32)).to(cuda)
     kw = dict(dilation=dil, leaky_slope=0.1, out_scale=0.05 if requant else None)
-    before = int8_conv.launches
-    got = int8_conv.int8_block_conv(x, wt, a, bias, **kw)
+    return (x, wt, a, bias), kw
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_kernel_matches_plain_bitwise(cuda, shape):
+    args, kw = _k5_case(cuda, shape)
+    variant = shape[-1]
+    k, dil = args[1].shape[0], kw["dilation"]
+    assert int8_conv.variant_for(args[0].shape[3], args[1].shape[3], k, dil) == variant
+    before, before_v = int8_conv.launches, int8_conv.variant_launches[variant]
+    got = int8_conv.int8_block_conv(*args, **kw)
     assert int8_conv.launches == before + 1
-    want = int8_conv.int8_block_conv_ref(x, wt, a, bias, **kw)
+    assert int8_conv.variant_launches[variant] == before_v + 1
+    want = int8_conv.int8_block_conv_ref(*args, **kw)
     torch.cuda.synchronize()
     assert got.dtype == want.dtype and got.shape == want.shape
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("shape", [s for s in SHAPES if s[-1] == "wgmma"],
+                         ids=lambda s: "x".join(map(str, s[:8])))
+def test_dp4a_variant_matches_plain_bitwise_on_aligned_shapes(cuda, shape):
+    """dp4a, PR 1's kernel, named on the shapes the tensor cores take."""
+    args, kw = _k5_case(cuda, shape)
+    pc = int8_conv.pack_conv(*args[1:], **kw)
+    before = int8_conv.variant_launches["dp4a"]
+    got = int8_conv.int8_block_conv_packed(args[0], pc, "dp4a")
+    assert int8_conv.variant_launches["dp4a"] == before + 1
+    want = int8_conv.int8_block_conv_packed_ref(args[0], pc)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_tensor_core_variant_refuses_ragged_channels(cuda):
+    args, kw = _k5_case(cuda, SHAPES[-3])
+    pc = int8_conv.pack_conv(*args[1:], **kw)
+    with pytest.raises(ValueError, match="multiples of 16"):
+        int8_conv.int8_block_conv_packed(args[0], pc, "wgmma")
 
 
 def test_kernel_refuses_strided_input(cuda):
@@ -72,8 +108,8 @@ def test_kernel_refuses_strided_input(cuda):
 def test_int8_window_path_on_card_matches_cpu(cuda):
     """Full-width int8 window voting on a small tile: the card (K5,
     cuDNN) and the CPU (plain versions) give the same labels."""
-    from dynseg.config import Config, InferConfig, ModelConfig
-    from dynseg.data.datasets import load_synthetic
+    from dynseg_torch.config import Config, InferConfig, ModelConfig
+    from dynseg_torch.data.datasets import load_synthetic
     from dynseg_torch.bridge import flax_to_torch, init_variables_np
     from dynseg_torch.infer import Inferencer
 
@@ -184,8 +220,8 @@ def test_train_step_on_card_matches_cpu(cuda):
     without TF32) and on the CPU (plain versions): loss within 1e-5
     relative and params within 1e-6 absolute (an lr-scaled gradient whose
     float32 sums run in another order; measured 3.4e-7)."""
-    from dynseg.config import Config, ModelConfig, SchedulerConfig, TrainConfig
-    from dynseg.data.datasets import load_synthetic
+    from dynseg_torch.config import Config, ModelConfig, SchedulerConfig, TrainConfig
+    from dynseg_torch.data.datasets import load_synthetic
     from dynseg_torch.train import Trainer
 
     cfg = Config(model=ModelConfig(width_multiplier=0.25, pool_backward="pallas"),

@@ -20,8 +20,19 @@ import torch
 from dynseg import infer as jax_infer
 from dynseg.config import Config, InferConfig, ModelConfig
 from dynseg.data.datasets import load_synthetic
+from dynseg_torch import config as port_config
 from dynseg_torch import infer
 from dynseg_torch.bridge import flax_to_torch, init_variables_np
+from dynseg_torch.data import tiles as port_tiles
+
+
+def _port(obj):
+    """The port's dataclass of the same name (a config, or a TileSet) with
+    the reference object's field values."""
+    mod = port_tiles if type(obj).__name__ == "TileSet" else port_config
+    vals = {f.name: getattr(obj, f.name) for f in dataclasses.fields(obj)}
+    return getattr(mod, type(obj).__name__)(**{
+        k: _port(v) if dataclasses.is_dataclass(v) else v for k, v in vals.items()})
 
 
 @pytest.mark.parametrize("lo,hi,size,stride,lim", [
@@ -47,13 +58,13 @@ def _variables(cfg, tiles, seed=0):
     centres the port's prediction of `tiles` in cfg's mode, so that both
     classes are predicted and the label maps compared are not constant.
     The head bias feeds neither calibration nor quantization."""
-    variables = init_variables_np(cfg.model, num_input_bands=3, seed=seed)
+    variables = init_variables_np(_port(cfg.model), num_input_bands=3, seed=seed)
     rng = np.random.default_rng(seed + 1)
     for block in variables["batch_stats"].values():
         bn = block["BatchNorm_0"]
         bn["mean"] = rng.normal(scale=0.2, size=bn["mean"].shape).astype(np.float32)
         bn["var"] = rng.uniform(0.5, 2.0, bn["var"].shape).astype(np.float32)
-    inf = infer.Inferencer(cfg, tiles, "cpu")
+    inf = infer.Inferencer(_port(cfg), _port(tiles), "cpu")
     sd = inf.enable_quant(flax_to_torch(variables))
     if cfg.infer.mode == "dense":
         _, prob = inf.predict_tile_dense(sd, 0, cfg.infer.dense_block,
@@ -84,7 +95,7 @@ def test_float_validate_test_matches_reference(tiles96, mode):
     sd = flax_to_torch(variables)
 
     jinf = jax_infer.Inferencer(cfg, tiles96)
-    tinf = infer.Inferencer(cfg, tiles96, device="cpu")
+    tinf = infer.Inferencer(_port(cfg), _port(tiles96), device="cpu")
     if mode == "window":
         pj, sum_j, cnt_j = (np.asarray(a) for a in jinf._window_device(variables, 0))
         pt, sum_t, cnt_t = (a.numpy() for a in tinf._window_device(sd, 0))
@@ -97,7 +108,7 @@ def test_float_validate_test_matches_reference(tiles96, mode):
         _assert_probs_and_labels(pt, prob_t, pj, prob_j)
 
     lines = []
-    got = infer.validate_test(cfg, sd, tiles96, "cpu", log=lines.append)
+    got = infer.validate_test(_port(cfg), sd, _port(tiles96), "cpu", log=lines.append)
     want = jax_infer.validate_test(cfg, variables, tiles96, log=lambda *_: None)
     assert abs(got["oa"] - want["oa"]) <= 1e-4
     assert abs(got["kappa"] - want["kappa"]) <= 1e-4
@@ -111,8 +122,8 @@ def test_float_validate_test_matches_reference(tiles96, mode):
 
 def test_eroded_scores_and_confusion(tiles96):
     cfg = _cfg(eroded_boundary_radius=2)
-    got = infer.validate_test(cfg, flax_to_torch(_variables(cfg, tiles96)), tiles96,
-                              "cpu", log=lambda *_: None)
+    got = infer.validate_test(_port(cfg), flax_to_torch(_variables(cfg, tiles96)),
+                              _port(tiles96), "cpu", log=lambda *_: None)
     gt = tiles96.masks[0, :96, :96]
     pred = got["predictions"][0]
     from dynseg.metrics import erode_boundaries, scores_from_confusion
@@ -132,7 +143,7 @@ def test_int8_validate_test_matches_reference():
     cfg = _cfg(quant="int8", width=1.0)
     variables = _variables(cfg, tiles, seed=3)
     lines = []
-    got = infer.validate_test(cfg, flax_to_torch(variables), tiles, "cpu",
+    got = infer.validate_test(_port(cfg), flax_to_torch(variables), _port(tiles), "cpu",
                               log=lines.append)
     want = jax_infer.validate_test(cfg, variables, tiles, log=lambda *_: None)
     assert lines[0].startswith(
@@ -147,4 +158,4 @@ def test_int8_validate_test_matches_reference():
 def test_tta_is_refused(tiles96):
     cfg = dataclasses.replace(_cfg(), infer=InferConfig(tta=True))
     with pytest.raises(NotImplementedError):
-        infer.Inferencer(cfg, tiles96, device="cpu")
+        infer.Inferencer(_port(cfg), _port(tiles96), device="cpu")

@@ -81,3 +81,20 @@ def test_bfloat16_output_is_not_ported():
         int8_conv.int8_block_conv(
             *(torch.from_numpy(v) for v in (x, w, a, b)), dilation=5,
             leaky_slope=0.1, out_dtype=torch.bfloat16)
+
+
+@pytest.mark.parametrize("shape,want", [
+    ((128, 128, 4, 4), "wgmma"), ((128, 256, 3, 5), "wgmma"), ((256, 256, 3, 6), "wgmma"),
+    ((16, 16, 3, 2), "wgmma"), ((144, 64, 4, 4), "wgmma"), ((131, 128, 4, 3), "dp4a"),
+    ((128, 68, 4, 4), "dp4a"), ((3, 5, 5, 1), "dp4a"), ((128, 128, 3, 128), "dp4a"),
+], ids=lambda v: "x".join(map(str, v)) if isinstance(v, tuple) else v)
+def test_variant_by_shape(shape, want):
+    """The tensor cores take 16-byte channel pieces and a SAME pad under
+    128 pixels (TMA's im2col window); every other shape takes dp4a."""
+    cin, cout, k, dil = shape
+    assert int8_conv.variant_for(cin, cout, k, dil) == want
+    w = torch.zeros((k, k, cin, cout), dtype=torch.int8)
+    pc = int8_conv.pack_conv(w, torch.zeros(cout), torch.zeros(cout), dilation=dil,
+                             leaky_slope=0.1, out_scale=0.05)
+    assert pc.variant == want and pc.w.shape == (k * k, cout, cin)
+    assert pc.inv_scale == np.float32(1.0 / 0.05)

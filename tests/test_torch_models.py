@@ -9,10 +9,18 @@ import numpy as np
 import pytest
 import torch
 
+import dataclasses
+
 from dynseg.config import NET_TYPES, ModelConfig
 from dynseg.models import dilated as jax_dilated
+from dynseg_torch import config as port_config
 from dynseg_torch.bridge import flax_to_torch, init_variables_np, torch_to_flax
 from dynseg_torch.models import dilated as torch_dilated
+
+
+def _port(cfg):
+    """The port's ModelConfig with the reference config's field values."""
+    return port_config.ModelConfig(**dataclasses.asdict(cfg))
 
 
 def _flat(tree, prefix=""):
@@ -45,7 +53,7 @@ def test_arch_and_receptive_radius_match_reference():
     for net in NET_TYPES:
         for window in (3, 5):
             cfg = ModelConfig(net_type=net, pool_window=window)
-            assert (torch_dilated.receptive_radius(cfg)
+            assert (torch_dilated.receptive_radius(_port(cfg))
                     == jax_dilated.receptive_radius(cfg))
 
 
@@ -57,7 +65,7 @@ def test_init_variables_np_has_flax_structure(net_type, use_bn):
     x = jax.ShapeDtypeStruct((1, 9, 9, 4), jnp.float32)
     ref = jax.eval_shape(
         lambda x: jax_dilated.build_model(cfg).init(jax.random.key(0), x), x)
-    got = init_variables_np(cfg, num_input_bands=4, seed=0)
+    got = init_variables_np(_port(cfg), num_input_bands=4, seed=0)
     want = {k: (tuple(v.shape), np.dtype(v.dtype))
             for k, v in _flat(dict(ref)).items()}
     assert {k: (v.shape, v.dtype) for k, v in _flat(got).items()} == want
@@ -67,7 +75,7 @@ def test_init_variables_np_has_flax_structure(net_type, use_bn):
 def test_bridge_round_trip_is_bitwise(use_bn):
     cfg = ModelConfig(net_type="dilated_icpr_rate6", num_classes=4,
                       width_multiplier=0.25, use_batch_norm=use_bn)
-    tree = _seeded_stats(init_variables_np(cfg, num_input_bands=3, seed=1), 2)
+    tree = _seeded_stats(init_variables_np(_port(cfg), num_input_bands=3, seed=1), 2)
     rng = np.random.default_rng(3)
     # A quant collection as quantize_variables writes it: int8 kernels,
     # scalar act_scale, per-channel w_scale, and the int8 exit.
@@ -96,11 +104,11 @@ def test_net_matches_flax_apply(net_type):
                       width_multiplier=width, use_batch_norm=True)
     rng = np.random.default_rng(5)
     x = rng.normal(size=(2, 17, 15, 3)).astype(np.float32)
-    variables = _seeded_stats(init_variables_np(cfg, num_input_bands=3, seed=1), 6)
+    variables = _seeded_stats(init_variables_np(_port(cfg), num_input_bands=3, seed=1), 6)
     want = np.asarray(jax_dilated.build_model(cfg).apply(
         variables, jnp.asarray(x), train=False))
 
-    net = torch_dilated.build_model(cfg)
+    net = torch_dilated.build_model(_port(cfg))
     net.load_state_dict(flax_to_torch(variables))
     with torch.inference_mode():
         got = net(torch.from_numpy(x)).numpy()
@@ -115,13 +123,13 @@ def test_net_without_batch_norm_matches_flax_apply():
                       width_multiplier=0.25, use_batch_norm=False)
     rng = np.random.default_rng(7)
     x = rng.normal(size=(1, 20, 23, 4)).astype(np.float32)
-    variables = init_variables_np(cfg, num_input_bands=4, seed=8)
+    variables = init_variables_np(_port(cfg), num_input_bands=4, seed=8)
     for block in variables["params"].values():
         conv = block["Conv_0"]
         conv["bias"] = rng.normal(scale=0.1, size=conv["bias"].shape).astype(np.float32)
     want = np.asarray(jax_dilated.build_model(cfg).apply(
         variables, jnp.asarray(x), train=False))
-    net = torch_dilated.build_model(cfg)
+    net = torch_dilated.build_model(_port(cfg))
     net.load_state_dict(flax_to_torch(variables))
     with torch.inference_mode():
         got = net(torch.from_numpy(x)).numpy()

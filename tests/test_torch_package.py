@@ -1,6 +1,9 @@
-"""dynseg_torch stands alone on a machine without JAX, and its kernel
-wrappers never quietly fall back to the plain versions."""
+"""dynseg_torch stands alone on a machine without JAX and without the JAX
+package, and its kernel wrappers never quietly fall back to the plain
+versions."""
 
+import os
+import re
 import subprocess
 import sys
 
@@ -8,6 +11,81 @@ import pytest
 import torch
 
 from dynseg_torch.ops import gather, int8_conv, pool
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+# A subprocess prelude that makes the JAX package and JAX itself absent:
+# a meta-path finder refuses their top-level names, as an interpreter
+# without them would (chip_smoke.py installs the same finder).
+ABSENT = "\n".join([
+    "import importlib.abc, sys",
+    "class Absent(importlib.abc.MetaPathFinder):",
+    "    def find_spec(self, name, path=None, target=None):",
+    "        if name.split('.')[0] in ('dynseg', 'jax', 'flax', 'optax'):",
+    "            raise ModuleNotFoundError(f'No module named {name!r}', name=name)",
+    "        return None",
+    "sys.meta_path.insert(0, Absent())",
+])
+
+
+def test_every_module_imports_without_the_jax_package():
+    """Every module of dynseg_torch imports, and the command line runs
+    check_data and --help, where dynseg, jax, flax and optax are absent."""
+    code = "\n".join([
+        ABSENT,
+        "import contextlib, io, pkgutil",
+        "import dynseg_torch",
+        "names = [m.name for m in pkgutil.walk_packages(dynseg_torch.__path__, 'dynseg_torch.')",
+        "         if not m.name.endswith('__main__')]",
+        "assert len(names) >= 25, names",
+        "for name in names:",
+        "    __import__(name)",
+        "from dynseg_torch.cli import main",
+        "rc = main(['--operation', 'check_data', '--dataset', 'synthetic',",
+        "           '--dataset_kwargs', '{\"size\": 32}', '--values', '9'])",
+        "assert rc == 0, rc",
+        "out = io.StringIO()",
+        "with contextlib.redirect_stdout(out), contextlib.suppress(SystemExit):",
+        "    main(['--help'])",
+        "assert '--device' in out.getvalue()",
+        "bad = sorted(m for m in sys.modules",
+        "             if m.split('.')[0] in ('dynseg', 'jax', 'flax', 'optax'))",
+        "assert not bad, bad",
+    ])
+    subprocess.run([sys.executable, "-c", code], check=True, timeout=300, cwd=ROOT)
+
+
+def test_the_finder_makes_the_jax_package_absent():
+    """The prelude of the test above does refuse the JAX package."""
+    code = ABSENT + "\nimport dynseg.config\n"
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=120, cwd=ROOT)
+    assert res.returncode != 0 and "No module named 'dynseg'" in res.stderr
+
+
+def test_no_source_line_imports_the_jax_package():
+    """No file of dynseg_torch, and not chip_smoke.py, has an import of
+    dynseg, jax, flax or optax."""
+    pattern = re.compile(r"^\s*(import|from)\s+(dynseg|jax|flax|optax)(\.|\s|$)")
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for base, _, names in os.walk(os.path.join(ROOT, "dynseg_torch")):
+        files += [os.path.join(base, n) for n in names if n.endswith(".py")]
+    assert len(files) >= 26
+    bad = []
+    for path in files:
+        with open(path) as f:
+            bad += [f"{path}:{i}: {line.strip()}" for i, line in enumerate(f, 1)
+                    if pattern.match(line)]
+    assert not bad, bad
+
+
+def test_chip_smoke_makes_the_jax_package_absent_first():
+    """chip_smoke.py installs the finder before it imports the port."""
+    with open(os.path.join(ROOT, "chip_smoke.py")) as f:
+        src = f.read()
+    first_import = re.search(r"^\s*(from|import) dynseg_torch", src, re.M)
+    assert "sys.meta_path.insert(0, _Absent())" in src and first_import
+    assert src.index("sys.meta_path.insert(0, _Absent())") < first_import.start()
 
 
 def test_package_imports_no_jax():

@@ -26,10 +26,27 @@ from dynseg.metrics import batch_accuracy as jax_acc
 from dynseg.models import dilated as jax_dilated
 from dynseg.sched.scheduler import ScaleScheduler
 from dynseg_torch import cli, metrics, train
+from dynseg_torch import config as port_config
 from dynseg_torch.bridge import (flax_to_torch, init_variables_np,
                                  load_momentum, momentum_to_flax,
                                  torch_to_flax)
+from dynseg_torch.data import tiles as port_tiles
 from dynseg_torch.models import dilated as torch_dilated
+from dynseg_torch.sched import scheduler as port_scheduler
+
+
+def _port(obj):
+    """The port's dataclass of the same name (a config, or a TileSet) with
+    the reference object's field values."""
+    mod = port_tiles if type(obj).__name__ == "TileSet" else port_config
+    vals = {f.name: getattr(obj, f.name) for f in dataclasses.fields(obj)}
+    return getattr(mod, type(obj).__name__)(**{
+        k: _port(v) if dataclasses.is_dataclass(v) else v for k, v in vals.items()})
+
+
+def _plain(cfg):
+    """A config of either package as its class name and field values."""
+    return type(cfg).__name__, dataclasses.asdict(cfg)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -62,7 +79,7 @@ def _assert_trees_close(got, want, rtol, atol, what):
 
 def _seeded(cfg: ModelConfig, bands: int, seed: int) -> dict:
     """Flax-shaped variables with non-trivial BN params and statistics."""
-    v = init_variables_np(cfg, num_input_bands=bands, seed=seed)
+    v = init_variables_np(_port(cfg), num_input_bands=bands, seed=seed)
     rng = np.random.default_rng(seed + 1)
     for name, st in v.get("batch_stats", {}).items():
         bn, s = v["params"][name]["BatchNorm_0"], st["BatchNorm_0"]
@@ -125,7 +142,7 @@ def test_train_forward_matches_flax(net_type, momentum):
     variables = _seeded(cfg, 3, 1)
     want, mutated = jax_dilated.build_model(cfg).apply(
         variables, jnp.asarray(x), train=True, mutable=["batch_stats"])
-    net = torch_dilated.build_model(cfg)
+    net = torch_dilated.build_model(_port(cfg))
     net.load_state_dict(flax_to_torch(variables))
     net.train()
     with torch.no_grad():
@@ -160,7 +177,7 @@ def test_masked_cross_entropy_and_batch_metrics():
 def test_dropout_keeps_and_scales_in_train_mode_only():
     cfg = ModelConfig(net_type="dilated_grsl", num_classes=2, width_multiplier=0.125,
                       dropout_rate=0.5)
-    net = torch_dilated.build_model(cfg, 3)
+    net = torch_dilated.build_model(_port(cfg), 3)
     x = torch.ones((4, 8, 8, 32)).permute(0, 3, 1, 2)
     gen = torch.Generator().manual_seed(0)
     assert torch.equal(net.dropout(x, gen), x)  # eval: identity
@@ -179,7 +196,7 @@ def _run_both(cfg, tiles, steps, size, momentum=False):
     returns (JAX state, JAX losses, port state, port losses)."""
     variables = _seeded(cfg.model, 3, 2)
     jt = jax_train.Trainer(cfg, tiles[0])
-    tt = train.Trainer(cfg, tiles[0], device="cpu")
+    tt = train.Trainer(_port(cfg), _port(tiles[0]), device="cpu")
     js = _jax_state(jt, variables)
     ts = tt.init_state(variables=variables)
     if momentum:
@@ -243,9 +260,9 @@ def test_steps_with_lr_decay_and_ema_match_reference(tiles):
     np.testing.assert_allclose(tl, jl, rtol=1e-4)
     assert tl[-1] < tl[0]
     _compare_states(js, ts, 1e-4, 1e-5, momentum=False)
-    ema = torch_to_flax(train.ema_variables(cfg, ts))["params"]
+    ema = torch_to_flax(train.ema_variables(_port(cfg), ts))["params"]
     _assert_trees_close(ema, js.opt_state[-1].ema, 1e-4, 1e-5, "ema")
-    assert [train.learning_rate(cfg, i) for i in range(5)] == [0.05, 0.05, 0.025, 0.025, 0.0125]
+    assert [train.learning_rate(_port(cfg), i) for i in range(5)] == [0.05, 0.05, 0.025, 0.025, 0.0125]
 
 
 # --------------------------------------------------------------------- #
@@ -261,7 +278,8 @@ def test_train_loop_matches_reference_schedule(tiles, dist):
     variables = _seeded(cfg.model, 3, 4)
     seqs, scheds = {}, {}
     for name in ("jax", "torch"):
-        sched = ScaleScheduler(cfg.sched, seed=0)
+        sched = (ScaleScheduler(cfg.sched, seed=0) if name == "jax"
+                 else port_scheduler.ScaleScheduler(_port(cfg.sched), seed=0))
         seqs[name] = []
         select = sched.select
         sched.select = lambda select=select, seq=seqs[name]: seq.append(select()) or seq[-1]
@@ -271,8 +289,8 @@ def test_train_loop_matches_reference_schedule(tiles, dist):
                                       log=lambda *_: None)
             assert int(st.step) == cfg.train.niter
         else:
-            tt = train.Trainer(cfg, tiles[0], device="cpu")
-            st = train.train_loop(cfg, tt, tt.init_state(variables=variables),
+            tt = train.Trainer(_port(cfg), _port(tiles[0]), device="cpu")
+            st = train.train_loop(_port(cfg), tt, tt.init_state(variables=variables),
                                   sched, log=lambda *_: None)
             assert st.step == cfg.train.niter
             assert sorted(tt.step_stats()) == sorted(set(seqs[name]))
@@ -290,9 +308,9 @@ def test_sigterm_drains_checkpoints_and_stops(tiles):
     iteration, returns, and restores the previous handler."""
     import signal
 
-    cfg = tiny_config(niter=1000, eval_every=2, metric_fetch_depth=4)
-    tt = train.Trainer(cfg, tiles[0], device="cpu")
-    sched = ScaleScheduler(cfg.sched, seed=0)
+    cfg = _port(tiny_config(niter=1000, eval_every=2, metric_fetch_depth=4))
+    tt = train.Trainer(cfg, _port(tiles[0]), device="cpu")
+    sched = port_scheduler.ScaleScheduler(cfg.sched, seed=0)
     saved, logs = [], []
     prev = signal.getsignal(signal.SIGTERM)
     state = train.train_loop(
@@ -308,7 +326,7 @@ def test_sigterm_drains_checkpoints_and_stops(tiles):
 def test_batch_size_for_and_batch_inputs_match_reference(tiles):
     cfg = tiny_config(batch_size=64, rescale_batch_by_area=True)
     jt = jax_train.Trainer(cfg, tiles[0])
-    tt = train.Trainer(cfg, tiles[0], device="cpu")
+    tt = train.Trainer(_port(cfg), _port(tiles[0]), device="cpu")
     for s in (9, 13, 25, 65):
         assert tt.batch_size_for(s) == jt.batch_size_for(s)
     pj, aj = jt.make_batch_inputs(13, k=2)
@@ -324,7 +342,7 @@ def test_recalibrate_batch_stats_matches_reference(tiles):
     cfg = tiny_config()
     variables = _seeded(cfg.model, 3, 6)
     jt = jax_train.Trainer(cfg, tiles[0])
-    tt = train.Trainer(cfg, tiles[0], device="cpu")
+    tt = train.Trainer(_port(cfg), _port(tiles[0]), device="cpu")
     want = jt.recalibrate_batch_stats(
         jax.tree.map(jnp.asarray, variables["params"]),
         jax.tree.map(jnp.asarray, variables["batch_stats"]), 3)
@@ -341,8 +359,8 @@ def test_eval_crops_matches_reference(tiles):
     cfg = tiny_config()
     variables = _seeded(cfg.model, 3, 8)
     jt = jax_train.Trainer(cfg, tiles[0])
-    tt = train.Trainer(cfg, tiles[0], device="cpu")
-    (jdev, jpad), (tdev, tpad) = jt.put_tiles(tiles[1]), tt.put_tiles(tiles[1])
+    tt = train.Trainer(_port(cfg), _port(tiles[0]), device="cpu")
+    (jdev, jpad), (tdev, tpad) = jt.put_tiles(tiles[1]), tt.put_tiles(_port(tiles[1]))
     np.testing.assert_array_equal(tdev[0].numpy(), np.asarray(jdev[0]))
     pos = jax_train.BalancedPatchSampler(jpad, 2, pad=jt.pad, seed=17,
                                          balanced=False).sample(12)
@@ -354,8 +372,8 @@ def test_eval_crops_matches_reference(tiles):
 
 
 def test_compile_buckets_leaves_state_untouched(tiles):
-    cfg = tiny_config(ema_decay=0.9)
-    tt = train.Trainer(cfg, tiles[0], device="cpu")
+    cfg = _port(tiny_config(ema_decay=0.9))
+    tt = train.Trainer(cfg, _port(tiles[0]), device="cpu")
     st = tt.init_state(seed=1)
     before = {k: v.clone() for k, v in st.model.state_dict().items()}
     times = tt.compile_buckets(st)
@@ -368,7 +386,7 @@ def test_compile_buckets_leaves_state_untouched(tiles):
 def test_data_parallel_options_raise(tiles):
     for kw in (dict(num_devices=2), dict(num_devices=2, shard_tiles=True)):
         with pytest.raises(NotImplementedError, match="data parallelism"):
-            train.Trainer(tiny_config(**kw), tiles[0], device="cpu")
+            train.Trainer(_port(tiny_config(**kw)), _port(tiles[0]), device="cpu")
 
 
 # --------------------------------------------------------------------- #
@@ -381,19 +399,21 @@ def test_cli_helpers_match_reference(tmp_path):
                             extra_bands="dsm,ndsm"),
                  DataConfig(dataset="coffee")):
         cfg = dataclasses.replace(base, data=data)
-        assert cli._loader_kwargs(cfg) == jax_cli._loader_kwargs(cfg)
+        assert cli._loader_kwargs(_port(cfg)) == jax_cli._loader_kwargs(cfg)
     tr = load_synthetic(seed=0, num_tiles=1, size=32, num_classes=3, num_bands=4)[0]
-    assert cli._fix_num_input_bands(base, tr) == jax_cli._fix_num_input_bands(base, tr)
-    assert (cli._fix_num_classes(base, tr, log=lambda *_: None)
-            == jax_cli._fix_num_classes(base, tr, log=lambda *_: None))
+    assert (_plain(cli._fix_num_input_bands(_port(base), _port(tr)))
+            == _plain(jax_cli._fix_num_input_bands(base, tr)))
+    assert (_plain(cli._fix_num_classes(_port(base), _port(tr), log=lambda *_: None))
+            == _plain(jax_cli._fix_num_classes(base, tr, log=lambda *_: None)))
     scores = {"oa": 0.9, "kappa": 0.8, "mean_f1": 0.85, "f1": np.array([0.8, 0.9]),
               "infer_wall_s": 1.5,
               "eroded": {"oa": 0.95, "kappa": 0.9, "mean_f1": 0.9, "f1": np.array([1, 0.8])}}
     out = {}
-    for name, fn in (("jax", jax_cli._write_scores), ("torch", cli._write_scores)):
+    for name, fn, conv in (("jax", jax_cli._write_scores, lambda c: c),
+                           ("torch", cli._write_scores, _port)):
         cfg = dataclasses.replace(base, train=dataclasses.replace(
             base.train, output_path=str(tmp_path / name)))
-        fn(cfg, scores, scales=(9, 13))
+        fn(conv(cfg), scores, scales=(9, 13))
         out[name] = json.loads((tmp_path / name / "scores.json").read_text())
     assert out["torch"] == out["jax"]
 
@@ -413,7 +433,7 @@ def test_run_training_end_to_end(tmp_path):
                           save_prediction_maps=False),
         data=DataConfig(dataset="synthetic", dataset_kwargs='{"size": 64}'))
     lines = []
-    scores = cli.run_training(cfg, log=lines.append, device="cpu")
+    scores = cli.run_training(_port(cfg), log=lines.append, device="cpu")
     assert scores["oa"] > 0.9, lines
     assert any(line.startswith("[val @ iter 40]") for line in lines)
     assert any("recalibrating BatchNorm" in line for line in lines)
