@@ -23,21 +23,29 @@ runs without them.
      3 per int8 forward, all of them the wgmma variant;
   4. K5 kernel vs plain, bitwise, on the int8 activations of one real
      window batch (256 windows of 65^2);
-  5. K2 (gather_batch) kernel vs plain, bitwise, at B=100 for s in
-     25..65 on uint8 tiles, every augment id and edge positions, and K4
-     (pallas_pool_bwd) kernel vs plain, bitwise, at the pools of a
-     100 x s^2 step (C 64, 128, 256; s 25 and 65), with CUDA-event times;
+  5. a. K2 (gather_batch) kernel vs plain, bitwise, at B=100 for s in
+        25..65 on uint8 tiles, every augment id and edge positions, with
+        its device time (a CUDA graph of 20 calls, replayed) against PR
+        4's kernel and its eager call time against PR 4's recorded one;
+     b. K4 (pallas_pool_bwd) kernel vs plain, bitwise, at the pools of a
+        100 x s^2 step (C 64, 128, 256; s 25 and 65): both variants
+        (fused, the step's; twopass, PR 2's kernel), each with its device
+        time, bytes/s and share of the bound, and ATen's first-max
+        backward at the same shape (not the same function); then the fused
+        variant on a constant image, which shows that TMA fills NaN
+        outside the image;
   6. one train step of a width-0.25 net on the card and on the CPU
      (plain versions): loss within 1e-5 relative, params within 1e-6;
   7. the training path: `dynseg_torch.cli.run_training` on full-width
      dilated_icpr_rate6 (batch 100, multinomial over 25..65, balanced
      sampling, dihedral augment, EMA + BN recalibration), warm-up then
      TRAIN_STEPS timed steps with pool_backward="pallas", then a shorter
-     run with "xla": ms/step and patches/s per scale, loss finite and
-     falling, final OA, and K2/K4 launches equal to the gathers and
-     pool backwards the run made;
+     run with "xla": ms/step and patches/s per scale, side by side, loss
+     finite and falling, final OA, K2/K4 launches equal to the gathers and
+     pool backwards the run made, every K4 launch the fused variant;
   8. K2 and K4 kernel vs plain, bitwise, on the tiles, positions and
-     activations of one real train step at 65 px;
+     activations of one real train step at 65 px (all six pools fused),
+     and whether the pool backward's inputs arrive channels_last (no copy);
   9. P1 (int8_conv3x3_requant) kernel vs plain, bitwise, on the TPU
      probe's check shapes, on ragged ones (odd H and W, B=3, C 32 and 160,
      dilations 1, 2, 5, 6) and at the probe's shape 8 x 592^2 x 256,
@@ -128,6 +136,15 @@ PROBE_REPS = 5
 # The H100 SXM's published dense peaks: int8 tensor-core operations, float32
 # outside the tensor cores, and the memory rate (bytes/s).
 INT8_PEAK, F32_PEAK, HBM_RATE = 1979e12, 67e12, 3.35e12
+# PR 4's K2 times at B = 100, s = 25..65 (PERF.md, PR 4's run): the rate of
+# eager wrapper calls between CUDA events, which the host's cost per call
+# bounded, and the kernel's device time (its source built from the parent
+# commit and replayed in a CUDA graph beside this kernel, PR 5's run).
+PR4_K2_EAGER_MS = {25: 0.0348, 35: 0.0340, 45: 0.0348, 55: 0.0500, 65: 0.0391}
+PR4_K2_DEVICE_MS = {25: 0.0073, 35: 0.0091, 45: 0.0142, 55: 0.0196, 65: 0.0249}
+# The six pools of a full-width dilated_icpr_rate6 step: channels of its
+# blocks (a 65 px step makes one backward at each).
+POOL_CHANNELS = (64, 64, 128, 128, 256, 256)
 # The command line: iterations of the first training run and of the resume.
 CLI_NITER, CLI_RESUME_NITER, CLI_EVERY = 40, 60, 20
 
@@ -147,6 +164,26 @@ def time_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, calls: int = 20, reps: int = 5) -> float:
+    """Device time of one `fn` call: `calls` calls captured in a CUDA graph
+    and replayed `reps` times between CUDA events, so that the host's cost
+    per call (the wrapper and the launch) is not in it."""
+    fn()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    ms = time_ms(graph.replay, reps) / calls
+    del graph
+    return ms
 
 
 def bound_ms(ops: float, nbytes: float, peak: float):
@@ -394,7 +431,8 @@ def check_real_activations(weights, int8_conv) -> None:
 
 
 def check_gather_kernel(gather) -> dict:
-    """Phase 5a: K2 kernel vs plain, bitwise, at B=100 for every scale."""
+    """Phase 5a: K2 kernel vs plain, bitwise, at B=100 for every scale; its
+    device time (CUDA-graph replay) and eager call time against PR 4's."""
     rng = np.random.default_rng(5)
     dev = torch.device(DEVICE)
     t_n, h, w, c = 4, 600, 600, 3
@@ -418,10 +456,11 @@ def check_gather_kernel(gather) -> dict:
         wi, wl = gather.gather_batch_ref(*args, s)
         torch.cuda.synchronize()
         same = torch.equal(gi, wi) and torch.equal(gl, wl)
-        ms = time_ms(lambda: gather.gather_batch(*args, s), 50)
+        ms = graph_ms(lambda: gather.gather_batch(*args, s))
+        eager = time_ms(lambda: gather.gather_batch(*args, s), 50)
         plain = time_ms(lambda: gather.gather_batch_ref(*args, s), 10)
         log(f"K2 gather B={TRAIN_BATCH} s={s} u8 tiles, aug 0..7: kernel == plain "
-            f"bitwise: {same}; kernel {ms:.4f} ms plain {plain:.4f} ms")
+            f"bitwise: {same}; kernel {ms:.4f} ms (device, CUDA graph) plain {plain:.4f} ms")
         if not same:
             raise SystemExit(f"K2 s={s}: kernel disagrees with plain")
         # Read: the windows' u8 pixels and labels, positions and augment
@@ -430,46 +469,85 @@ def check_gather_kernel(gather) -> dict:
         px = TRAIN_BATCH * s * s
         bound, bound_by = bound_ms(2.0 * px * c, px * c + px + 16 * TRAIN_BATCH
                                    + 4 * px * c + 8 * px, F32_PEAK)
-        log(f"    bound {bound:.5f} ms ({bound_by}), {bound / ms:.3f} of it")
+        log(f"    bound {bound:.5f} ms ({bound_by}), {bound / ms:.3f} of it; vs PR 4's "
+            f"kernel {PR4_K2_DEVICE_MS[s]:.4f} ms (device): {PR4_K2_DEVICE_MS[s] / ms:.2f}x; "
+            f"eager call {eager:.4f} ms vs PR 4's {PR4_K2_EAGER_MS[s]:.4f} ms "
+            f"({PR4_K2_EAGER_MS[s] / ms:.2f}x its recorded time)")
         total.update(ms=ms, plain_ms=plain)
         bounds[bound_by] += bound
     return {"max_abs_err": 0.0, "ms": total["ms"], "plain_ms": total["plain_ms"],
             **bound_totals(bounds)}
 
 
+def aten_first_max_bwd(x, g):
+    """ATen's max-pool backward at K4's shape (NHWC x, g; window 3): each
+    window's gradient to its first max, by the forward's indices. Not the
+    same function as K4, and the port never calls it; timed as a yardstick."""
+    xc, gc = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
+    _, idx = torch.nn.functional.max_pool2d(xc, 3, 1, 1, return_indices=True)
+    return lambda: torch.ops.aten.max_pool2d_with_indices_backward(
+        gc, xc, [3, 3], [1, 1], [1, 1], [1, 1], False, idx)
+
+
 def check_pool_kernel(pool) -> dict:
-    """Phase 5b: K4 kernel vs plain, bitwise, at the step's pool shapes.
-    Values on a 1/16 grid give the plateaus of stacked pools (ties)."""
+    """Phase 5b: K4 kernel vs plain, bitwise, at the step's pool shapes,
+    both variants timed (device time, CUDA-graph replay) with ATen's
+    first-max backward beside them. Values on a 1/16 grid give the
+    plateaus of stacked pools (ties). A constant image then checks that
+    the fused variant reads NaN outside the image."""
     rng = np.random.default_rng(6)
     dev = torch.device(DEVICE)
     total, bounds = collections.Counter(), collections.Counter()
     for s in (25, 65):
-        for c in (64, 128, 256):
+        for c in sorted(set(POOL_CHANNELS)):
             shape = (TRAIN_BATCH, s, s, c)
             x = torch.round(torch.randn(shape, device=dev, generator=torch.Generator(
                 dev).manual_seed(s * c)) * 16) / 16
             y = pool.pool_forward(x.permute(0, 3, 1, 2), 3).permute(0, 2, 3, 1).contiguous()
             g = torch.from_numpy(rng.normal(0, 1e-3, shape).astype(np.float32)).to(dev)
-            got = pool.pallas_pool_bwd(x, y, g, 3)
+            if pool.variant_for(shape, 3, x.data_ptr() % 16 == 0) != "fused":
+                raise SystemExit(f"K4 {shape}: the step's pool does not take the fused variant")
             want = pool.pallas_pool_bwd_ref(x, y, g, 3)
-            torch.cuda.synchronize()
-            same = torch.equal(got, want)
-            ties = float((got != 0).float().mean())
-            ms = time_ms(lambda: pool.pallas_pool_bwd(x, y, g, 3), 20)
+            ms = {}
+            for variant in pool.VARIANTS:
+                got = pool.pallas_pool_bwd(x, y, g, 3, variant)
+                torch.cuda.synchronize()
+                if not torch.equal(got, want):
+                    raise SystemExit(f"K4 {shape} {variant}: kernel disagrees with plain")
+                del got
+                ms[variant] = graph_ms(lambda: pool.pallas_pool_bwd(x, y, g, 3, variant))
+            eager = time_ms(lambda: pool.pallas_pool_bwd(x, y, g, 3), 20)
             plain = time_ms(lambda: pool.pallas_pool_bwd_ref(x, y, g, 3), 5)
-            gb = 8 * x.numel() * 4 / 1e9  # x, y, g, gdc; x, y, gdc, dx
-            log(f"K4 pool bwd {shape} window 3: kernel == plain bitwise: {same} "
-                f"(nonzero dx share {ties:.3f}); kernel {ms:.4f} ms "
-                f"({gb / ms * 1e3:.0f} GB/s at 8 tensor passes) plain {plain:.4f} ms")
-            if not same:
-                raise SystemExit(f"K4 {shape}: kernel disagrees with plain")
+            aten = graph_ms(aten_first_max_bwd(x, g))
+            ties = float((want != 0).float().mean())
             # x, y, g read and dx written once; a compare and an add per
             # tap in each of the two passes.
-            bound, bound_by = bound_ms(2 * 2 * 9.0 * x.numel(), 4 * 4 * x.numel(), F32_PEAK)
-            log(f"    bound {bound:.4f} ms ({bound_by}), {bound / ms:.3f} of it")
-            total.update(ms=ms, plain_ms=plain)
+            nbytes = 4 * 4 * x.numel()
+            bound, bound_by = bound_ms(2 * 2 * 9.0 * x.numel(), nbytes, F32_PEAK)
+            log(f"K4 pool bwd {shape} window 3: every variant == plain bitwise "
+                f"(nonzero dx share {ties:.3f}); bound {bound:.4f} ms ({bound_by}); "
+                f"plain {plain:.4f} ms")
+            for variant, t in ms.items():
+                log(f"    {variant:8s}: {t:.4f} ms (device), {nbytes / t / 1e6:.0f} GB/s "
+                    f"of x, y, g, dx, {bound / t:.3f} of the bound")
+            log(f"    fused vs twopass {ms['twopass'] / ms['fused']:.2f}x; eager call "
+                f"{eager:.4f} ms")
+            log(f"    ATen max_pool2d_with_indices_backward (first max, not the same "
+                f"function): {aten:.4f} ms (device)")
+            total.update(ms=ms["fused"], plain_ms=plain)
             bounds[bound_by] += bound
-            del x, y, g, got, want
+            del x, y, g, want
+    # A constant image: inside it every tap ties, so a corner counts 4 and
+    # an edge 6; a fill of 0 outside the image would make them count 9.
+    x = torch.zeros((2, 13, 11, 32), device=dev)
+    g = torch.ones_like(x)
+    got = pool.pallas_pool_bwd(x, x, g, 3, "fused")
+    corner = float(got[0, 0, 0, 0])
+    ok = torch.equal(got, pool.pallas_pool_bwd_ref(x, x, g, 3))
+    log(f"K4 fused on a constant image: == plain bitwise: {ok}; corner dx {corner:.7f} "
+        f"(1/4 + 2/6 + 1/9 = {1 / 4 + 2 / 6 + 1 / 9:.7f}): TMA fills NaN outside the image")
+    if not ok or abs(corner - (1 / 4 + 2 / 6 + 1 / 9)) > 1e-6:
+        raise SystemExit("K4 fused: the tensor map's fill outside the image is not NaN")
     torch.cuda.empty_cache()
     return {"max_abs_err": 0.0, "ms": total["ms"], "plain_ms": total["plain_ms"],
             **bound_totals(bounds)}
@@ -536,7 +614,8 @@ def run_training_slice(gather, pool, card: str) -> dict:
         for pb, niter, ema in (("pallas", TRAIN_STEPS, True), ("xla", XLA_STEPS, False)):
             cfg = train_config(pb, niter, ema)
             losses.clear()
-            gather.launches = pool.launches = 0
+            gather.launches = 0
+            pool.reset_launches()
             t0 = time.perf_counter()
             scores = cli.run_training(cfg, log=lambda *_: None, device=DEVICE)
             torch.cuda.synchronize()
@@ -559,18 +638,30 @@ def run_training_slice(gather, pool, card: str) -> dict:
             log(f"  K2 launches {k2} (expected {gathers} gathers: {n_scales} warm-up + "
                 f"{niter} steps + {niter // EVAL_EVERY} evals + "
                 f"{RECALIB if ema else 0} recalibration); K4 launches {k4} "
-                f"(expected {backwards} = 6 pools x {n_scales + niter} steps)")
+                f"(expected {backwards} = 6 pools x {n_scales + niter} steps), by variant "
+                f"{pool.variant_launches}")
             if not all(map(math.isfinite, vals)) or len(vals) != niter:
                 raise SystemExit(f"{pb}: non-finite or missing losses {vals}")
             if not tail < head:
                 raise SystemExit(f"{pb}: loss did not fall ({head} -> {tail})")
             if k2 != gathers or k4 != backwards or (pb == "pallas" and k4 == 0):
                 raise SystemExit(f"{pb}: launch counts do not match the run")
+            if pool.variant_launches["fused"] != k4:
+                raise SystemExit(f"{pb}: a pool backward of the step did not take "
+                                 f"the fused variant")
             if not 0.0 <= scores["oa"] <= 1.0 or len(scores["predictions"]) != 2:
                 raise SystemExit(f"{pb}: malformed scores")
             out[pb] = {"k2": k2, "k4": k4, "steps": scores["train_steps"]}
     finally:
         train.Trainer.train_step = step
+    log("ms/step by scale, pool_backward pallas (K4) vs xla (ATen's first-max "
+        "backward), the same net, batch and tiles:")
+    for size in sorted(out["pallas"]["steps"]):
+        pal, xla = out["pallas"]["steps"][size], out["xla"]["steps"].get(size)
+        xla_ms = f"{xla['ms_per_step']:.3f}" if xla else "not run"
+        diff = f", pallas - xla {pal['ms_per_step'] - xla['ms_per_step']:+.3f} ms" if xla else ""
+        log(f"  scale {size}: pallas {pal['ms_per_step']:.3f} ({pal['steps']} steps) "
+            f"xla {xla_ms} ({xla['steps'] if xla else 0} steps){diff}")
     return out
 
 
@@ -592,27 +683,45 @@ def check_train_real_activations(gather, pool) -> None:
         captured.append(("K2", args, out))
         return out
 
+    launched = []
+
     def capture_pool(*args):
+        before = dict(pool.variant_launches)
         out = pool_bwd(*args)
+        launched.extend(v for v in pool.VARIANTS if pool.variant_launches[v] != before[v])
         captured.append(("K4", tuple(a.clone() for a in args[:3]) + args[3:], out.clone()))
         return out
 
-    pool_bwd = pool_mod.pallas_pool_bwd
+    views = []
+
+    def watch_nhwc(t):
+        out = nhwc(t)
+        views.append(out.data_ptr() == t.data_ptr())
+        return out
+
+    pool_bwd, nhwc = pool_mod.pallas_pool_bwd, pool_mod._nhwc
     train.gather_batch, pool_mod.pallas_pool_bwd = capture_gather, capture_pool
+    pool_mod._nhwc = watch_nhwc
     try:
         pos, aug = tr.make_batch_inputs(65)
         tr._step_impl(st, pos[0], aug[0], 65)
     finally:
         train.gather_batch, pool_mod.pallas_pool_bwd = gather.gather_batch, pool_bwd
+        pool_mod._nhwc = nhwc
+    log(f"real train step: the pool backward's x, y, g arrived channels_last (NHWC "
+        f"views, no copy) {sum(views)} of {len(views)} times")
     if [c[0] for c in captured] != ["K2"] + ["K4"] * 6:
         raise SystemExit(f"expected 1 K2 and 6 K4 launches, got {[c[0] for c in captured]}")
+    if launched != ["fused"] * 6:
+        raise SystemExit(f"the step's pool backwards took {launched}, not the fused variant")
     for name, args, out in captured:
         ref = gather.gather_batch_ref if name == "K2" else pool.pallas_pool_bwd_ref
         want = ref(*args)
         same = (all(map(torch.equal, out, want)) if name == "K2"
                 else torch.equal(out, want))
-        log(f"real train step, {name} x{tuple(args[0].shape) if name == 'K4' else tuple(out[0].shape)}: "
-            f"kernel == plain bitwise: {same}")
+        shape = tuple(args[0].shape) if name == "K4" else tuple(out[0].shape)
+        variant = f" ({launched.pop(0)})" if name == "K4" else ""
+        log(f"real train step, {name} x{shape}{variant}: kernel == plain bitwise: {same}")
         if not same:
             raise SystemExit(f"{name}: kernel disagrees on real data")
 
@@ -737,7 +846,8 @@ def run_cli(card: str) -> dict:
                              *train_flags])
     train_total = total(lines, "training")
     expect("training", lines, patch_gather=n + CLI_NITER + CLI_NITER // CLI_EVERY + RECALIB,
-           pool_bwd=6 * (n + CLI_NITER), int8_block_conv=0)
+           pool_bwd=6 * (n + CLI_NITER), int8_block_conv=0,
+           **{"pool_bwd.fused": 6 * (n + CLI_NITER)})
     maps = sorted(f for f in os.listdir(out) if f.startswith("prediction_"))
     for f in maps:
         os.replace(os.path.join(out, f), os.path.join(out, "train_" + f))
@@ -762,7 +872,7 @@ def run_cli(card: str) -> dict:
     steps = CLI_RESUME_NITER - CLI_NITER
     total(lines, "resume")
     expect("resume", lines, patch_gather=n + steps + steps // CLI_EVERY + RECALIB,
-           pool_bwd=6 * (n + steps))
+           pool_bwd=6 * (n + steps), **{"pool_bwd.fused": 6 * (n + steps)})
 
     # int8 testing, predict and info only read the checkpoint: they run
     # side by side, and their walls overlap.
@@ -891,8 +1001,13 @@ def profile_train_steps(out_dir: str) -> None:
             by_name = collections.Counter()
             for e in kernels:
                 by_name[e["name"][:90]] += e["dur"] / 1e3
+            copies = [e for e in kernels if any(
+                k in e["name"].lower() for k in ("copy", "transpose", "nchwtonhwc",
+                                                 "nhwctonchw"))]
             log(f"profile pool_backward={pb} s={s}: span {span * 1e3:.3f} ms, "
-                f"kernels busy {busy * 1e3:.3f} ms, idle share {1 - busy / span:.3f}")
+                f"kernels busy {busy * 1e3:.3f} ms, idle share {1 - busy / span:.3f}; "
+                f"copy/transpose kernels {len(copies)}, "
+                f"{sum(e['dur'] for e in copies) / 1e3:.3f} ms")
             for name, ms in by_name.most_common(8):
                 log(f"    {ms:8.3f} ms  {name}")
 

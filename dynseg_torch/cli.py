@@ -981,8 +981,9 @@ def _launch_counts() -> str:
 
     variants = " ".join(f"int8_block_conv.{v}={n}"
                         for v, n in int8_conv.variant_launches.items())
+    pools = " ".join(f"pool_bwd.{v}={n}" for v, n in pool.variant_launches.items())
     return (f"kernel launches: int8_block_conv={int8_conv.launches} {variants} "
-            f"patch_gather={gather.launches} pool_bwd={pool.launches}")
+            f"patch_gather={gather.launches} pool_bwd={pool.launches} {pools}")
 
 
 def main(argv: Optional[List[str]] = None) -> int:

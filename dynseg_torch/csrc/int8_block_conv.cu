@@ -49,7 +49,8 @@
 
 #include <cstdint>
 #include <cuda_runtime.h>
-#include <cudaTypedefs.h>  // CUtensorMap and the driver's function types
+
+#include "tma.cuh"  // stage barriers, tensor-map encoders
 
 namespace {
 
@@ -126,26 +127,8 @@ __device__ __forceinline__ void wgmma_m64n128k32(int (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(1));
 }
 
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count)
-               : "memory");
-}
-
-// Wait until the barrier's phase of this parity has completed. A wait that
-// has not ended after 2^26 polls traps, so a fault ends the kernel with an
-// error instead of holding the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  for (long long spin = 0;; ++spin) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-    if (done) return;
-    if (spin > (1ll << 26)) __trap();
-  }
-}
+using tma::mbar_init;
+using tma::mbar_wait;
 
 // One thread: arm the stage's barrier for `bytes`, then copy the weight
 // box (128 Cin bytes x 128 output channels of one tap) at (c, n, tap) by TMA
@@ -314,19 +297,11 @@ k5_wgmma_kernel(const __grid_constant__ CUtensorMap wmap,
 
 // The weights (k*k, Cout, Cin) as a 3-D TMA tensor map: boxes of 128 Cin
 // bytes x 128 output channels of one tap, 128-byte swizzled; Cin and Cout
-// past the tensor read as zeros. cuTensorMapEncodeTiled is the driver's,
-// reached through the runtime so that the library links no libcuda.
+// past the tensor read as zeros.
 cudaError_t weight_map(CUtensorMap* map, const void* w, int Cin, int Cout, int taps) {
-  static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
-  if (encode == nullptr) {
-    void* fn = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    const cudaError_t e =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
-    if (e != cudaSuccess) return e;
-    if (found != cudaDriverEntryPointSuccess || fn == nullptr) return cudaErrorNotSupported;
-    encode = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(fn);
-  }
+  PFN_cuTensorMapEncodeTiled_v12000 encode;
+  const cudaError_t e = tma::encode_tiled(&encode);
+  if (e != cudaSuccess) return e;
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(Cin), static_cast<cuuint64_t>(Cout),
                               static_cast<cuuint64_t>(taps)};
   const cuuint64_t strides[2] = {static_cast<cuuint64_t>(Cin),
@@ -344,16 +319,9 @@ cudaError_t weight_map(CUtensorMap* map, const void* w, int Cin, int Cout, int t
 // bytes a load, walked over the output pixels shifted by -pad_lo.
 cudaError_t input_map(CUtensorMap* map, const void* x, int B, int H, int W, int Cin,
                       int pad_lo) {
-  static PFN_cuTensorMapEncodeIm2col_v12000 encode = nullptr;
-  if (encode == nullptr) {
-    void* fn = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    const cudaError_t e =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeIm2col", &fn, cudaEnableDefault, &found);
-    if (e != cudaSuccess) return e;
-    if (found != cudaDriverEntryPointSuccess || fn == nullptr) return cudaErrorNotSupported;
-    encode = reinterpret_cast<PFN_cuTensorMapEncodeIm2col_v12000>(fn);
-  }
+  PFN_cuTensorMapEncodeIm2col_v12000 encode;
+  const cudaError_t e = tma::encode_im2col(&encode);
+  if (e != cudaSuccess) return e;
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(Cin), static_cast<cuuint64_t>(W),
                               static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(B)};
   const cuuint64_t strides[3] = {static_cast<cuuint64_t>(Cin),

@@ -55,8 +55,8 @@ def _bind(lib: ctypes.CDLL) -> None:
     fn.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, p]
     fn.restype = ctypes.c_int
     fn = lib.dynseg_pool_bwd
-    # x, y, g, gdc, dx, B, H, W, C, window, stream
-    fn.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
+    # x, y, g, gdc, dx, B, H, W, C, window, variant, tile_h, tile_w, stream
+    fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, p]
     fn.restype = ctypes.c_int
     fn = lib.dynseg_int8_conv3x3
     # x, w_packed, out, B, H, W, C, dilation, scale, stream

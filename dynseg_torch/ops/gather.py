@@ -10,7 +10,8 @@ the device from the padded tiles held there:
 
 `gather_batch` launches the hand-written Hopper kernel
 (csrc/patch_gather.cu), which fuses the crop, the normalisation and the
-augment into one launch, for CUDA tensors; it takes the plain PyTorch
+augment into one launch over a flat grid of the output (any window size),
+for CUDA tensors; it takes the plain PyTorch
 version, `gather_batch_ref`, only for tensors on the CPU. `launches`
 counts the kernel's launches.
 """
@@ -21,9 +22,6 @@ import torch
 
 # Kernel launches since the last reset (callers set it to 0).
 launches = 0
-
-# Shared memory a block may use on the H100 (227 KB).
-_SMEM_LIMIT = 232448
 
 
 def dihedral_batch(x: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
@@ -118,11 +116,9 @@ def gather_batch(images: torch.Tensor, masks: torch.Tensor,
         raise ValueError("gather_batch: tiles and masks must be contiguous")
     t_n, h, w, c = images.shape
     b = positions.shape[0]
-    smem = (-(-size * size * c * images.element_size() // 16) * 16
-            + size * size * masks.element_size())
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"gather_batch: a {size}^2 x {c} window needs {smem} "
-                         f"bytes of shared memory (limit {_SMEM_LIMIT})")
+    if b * size * size * c + 4 >= 2 ** 31:
+        raise ValueError(f"gather_batch: a batch of {b} patches of {size}^2 x {c} "
+                         f"is past the kernel's 32-bit index (B*s*s*C + 4 < 2^31)")
     pos = positions.to(torch.int32).contiguous()
     aug = aug_ids.to(torch.int32).contiguous()
     m = mean.float().contiguous()

@@ -10,8 +10,15 @@ subgradient of the reference's Pallas kernel,
 over the window's offsets in row-major order. `pallas_pool_bwd` launches
 the hand-written Hopper kernel (csrc/pool_bwd.cu) for CUDA tensors and
 takes the plain PyTorch version, `pallas_pool_bwd_ref`, only for tensors
-on the CPU. `launches` counts the wrapper's kernel launches (one per
-backward; the kernel runs in two passes).
+on the CPU.
+
+The kernel has two variants, chosen by `variant_for` from the shape and
+the pointers alone: "fused", one pass whose tiles TMA copies into shared
+memory, where C is a multiple of 4, x, y and g are 16-byte aligned and a
+tile fits the shared memory (every pool of dilated_icpr_rate6), and
+"twopass", PR 2's kernel, for any other shape. `launches` counts the
+wrapper's kernel launches (one per backward), `variant_launches` those of
+each variant.
 
 An even window has an asymmetric SAME footprint that the symmetric tap set
 cannot express: as in the reference, `max_pool_s1` then warns and takes
@@ -22,12 +29,27 @@ launch raises.
 from __future__ import annotations
 
 import warnings
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
-# Kernel launches since the last reset (callers set it to 0).
+# Kernel launches since the last reset (callers set them to 0).
 launches = 0
+VARIANTS = ("twopass", "fused")  # the C entry's variant codes
+variant_launches = dict.fromkeys(VARIANTS, 0)
+
+# The fused variant's largest tile side, and the shared memory a block may
+# use on the H100 (227 KB).
+_TILE = 16
+_SMEM_LIMIT = 232448
+
+
+def reset_launches() -> None:
+    global launches
+    launches = 0
+    for v in VARIANTS:
+        variant_launches[v] = 0
 
 
 def pool_forward(x: torch.Tensor, window: int) -> torch.Tensor:
@@ -61,6 +83,39 @@ def _check(x, y, g, window):
             raise TypeError(f"pallas_pool_bwd: float32 required, got {t.dtype}")
 
 
+def fused_tile(n: int) -> int:
+    """The fused variant's tile side along an extent of n pixels: at most
+    16, cutting n into as few tiles of as equal a size as it can (13 at 65
+    and at 25)."""
+    tiles = -(-n // _TILE)
+    return -(-n // tiles)
+
+
+def fused_smem(c: int, window: int, th: int, tw: int) -> int:
+    """Dynamic shared memory of a fused block (csrc/pool_bwd.cu
+    `smem_bytes`): x on the tile plus a halo of 2r, y and g on the tile
+    plus r, 4 * min(4, C // 4) channels, each box rounded to 128 bytes,
+    the barrier and 128 bytes of alignment."""
+    r, cb = window // 2, 4 * min(4, c // 4)
+
+    def box(h, w):
+        return -(-h * w * cb * 4 // 128) * 128
+
+    return box(th + 4 * r, tw + 4 * r) + 2 * box(th + 2 * r, tw + 2 * r) + 8 + 128
+
+
+def variant_for(shape, window: int = 3, aligned: bool = True) -> str:
+    """The kernel variant a (B, H, W, C) backward launches: "fused" where
+    TMA can copy the tensors (C a multiple of 4, so 16-byte rows, and
+    16-byte aligned pointers: `aligned`) and a tile fits the shared
+    memory, else "twopass"."""
+    _, h, w, c = shape
+    if c % 4 or c == 0 or not aligned or window % 2 != 1:
+        return "twopass"
+    smem = fused_smem(c, window, fused_tile(h), fused_tile(w))
+    return "fused" if smem <= _SMEM_LIMIT else "twopass"
+
+
 def pallas_pool_bwd_ref(x: torch.Tensor, y: torch.Tensor, g: torch.Tensor,
                         window: int = 3) -> torch.Tensor:
     """Plain PyTorch version of K4 on any device, NHWC (B, H, W, C). Taps
@@ -88,11 +143,12 @@ def pallas_pool_bwd_ref(x: torch.Tensor, y: torch.Tensor, g: torch.Tensor,
 
 
 def pallas_pool_bwd(x: torch.Tensor, y: torch.Tensor, g: torch.Tensor,
-                    window: int = 3) -> torch.Tensor:
+                    window: int = 3, variant: Optional[str] = None) -> torch.Tensor:
     """K4: dx for y = maxpool_{window, SAME, stride 1}(x) given the
     cotangent g; x, y, g (B, H, W, C) float32, NHWC-contiguous on the card.
-    CPU tensors take `pallas_pool_bwd_ref`; CUDA tensors launch the
-    kernel; anything else raises."""
+    CPU tensors take `pallas_pool_bwd_ref`; CUDA tensors launch `variant`
+    (default: `variant_for` the shape and pointers); anything else
+    raises."""
     global launches
     if x.device.type == "cpu":
         return pallas_pool_bwd_ref(x, y, g, window)
@@ -106,26 +162,37 @@ def pallas_pool_bwd(x: torch.Tensor, y: torch.Tensor, g: torch.Tensor,
             raise ValueError("pallas_pool_bwd: y and g must be NHWC-contiguous")
     if not x.is_contiguous():
         raise ValueError("pallas_pool_bwd: x must be NHWC-contiguous")
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x, y, g))
+    chosen = variant_for(x.shape, window, aligned)
+    variant = variant or chosen
+    if variant not in VARIANTS:
+        raise ValueError(f"pallas_pool_bwd: unknown variant {variant!r}")
+    if variant == "fused" and chosen != "fused":
+        raise ValueError(f"variant fused needs C a multiple of 4, 16-byte aligned "
+                         f"x, y, g and a tile within the shared memory, got "
+                         f"{tuple(x.shape)}, window {window}, aligned {aligned}")
     dx = torch.empty_like(x)
     if x.numel() == 0:
         return dx
-    gdc = torch.empty_like(x)
     from dynseg_torch.ops._build import load_library
 
-    lib = load_library()
     b, h, w, c = x.shape
-    err = lib.dynseg_pool_bwd(
-        x.data_ptr(), y.data_ptr(), g.data_ptr(), gdc.data_ptr(),
-        dx.data_ptr(), b, h, w, c, window,
+    gdc = torch.empty_like(x) if variant == "twopass" else None
+    err = load_library().dynseg_pool_bwd(
+        x.data_ptr(), y.data_ptr(), g.data_ptr(),
+        None if gdc is None else gdc.data_ptr(), dx.data_ptr(), b, h, w, c,
+        window, VARIANTS.index(variant), fused_tile(h), fused_tile(w),
         torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError(f"pallas_pool_bwd launch failed: CUDA error {err}")
     launches += 1
+    variant_launches[variant] += 1
     return dx
 
 
 def _nhwc(t: torch.Tensor) -> torch.Tensor:
-    """NCHW tensor -> NHWC-contiguous (a view for channels_last input)."""
+    """NCHW tensor -> NHWC-contiguous: a view for channels_last input (the
+    net's layout), a copy otherwise."""
     return t.permute(0, 2, 3, 1).contiguous()
 
 

@@ -129,12 +129,14 @@ def test_int8_window_path_on_card_matches_cpu(cuda):
 
 
 # (T, H, W, C, size, B, uint8 tiles, uint8 masks): the slice's shapes
-# (uint8, C 3, s 25..65, B 100), then float32 tiles, int32 masks, even and
-# tiny sizes, C 1 and 5, a window as large as the tile, and a float32
-# window of 65^2 x 5 that needs more than 48 KB of shared memory.
+# (uint8, C 3, s 25..65, B 100; s 25 at B 1 and 1000), then float32 tiles,
+# int32 masks, even and tiny sizes, C 1 and 5, a window as large as the
+# tile, and a float32 window of 65^2 x 5.
 GATHER = [
     (3, 200, 190, 3, 65, 100, True, True),
     (3, 200, 190, 3, 25, 100, True, True),
+    (3, 200, 190, 3, 25, 1, True, True),
+    (3, 200, 190, 3, 25, 1000, True, True),
     (2, 80, 70, 3, 16, 37, False, False),
     (2, 40, 41, 1, 9, 13, True, False),
     (1, 30, 30, 5, 30, 8, False, True),
@@ -171,32 +173,88 @@ def test_gather_kernel_matches_plain_bitwise(cuda, case):
     assert torch.equal(gi, wi) and torch.equal(gl, wl)
 
 
-# (B, H, W, C, window, ties): the slice's pool shapes at batch 2, then
-# ragged ones: C 3 and 5, H or W of 1, window 5 and 7.
+# (B, H, W, C, window, ties): the slice's pool shapes at batch 2 and the
+# largest at its full batch, then ragged ones: C 3 and 5, H or W of 1, H
+# and W not a multiple of the fused tile, window 5 and 7.
 POOL = [
     (2, 25, 25, 64, 3, False), (2, 65, 65, 256, 3, True), (3, 13, 11, 3, 3, True),
     (1, 1, 9, 5, 3, False), (2, 10, 7, 8, 5, True), (1, 6, 9, 16, 7, True),
+    (100, 65, 65, 256, 3, True), (2, 29, 31, 68, 3, True), (1, 17, 35, 4, 5, True),
 ]
 
 
-@pytest.mark.parametrize("case", POOL, ids=lambda c: "x".join(map(str, c)))
-def test_pool_bwd_kernel_matches_plain_bitwise(cuda, case):
+def _pool_case(cuda, case, offset=0):
+    """x, y, g of a POOL case; with `offset`, each tensor's storage starts
+    that many float32 past the allocation (4 bytes per unit)."""
     b, h, w, c, window, ties = case
     rng = np.random.default_rng(sum(case[:5]))
     if ties:
         x = rng.integers(0, 3, (b, h, w, c)).astype(np.float32)
     else:
         x = rng.normal(size=(b, h, w, c)).astype(np.float32)
-    xt = torch.from_numpy(x).to(cuda)
-    y = pool.pool_forward(xt.permute(0, 3, 1, 2), window).permute(0, 2, 3, 1).contiguous()
-    g = torch.from_numpy(rng.normal(size=(b, h, w, c)).astype(np.float32)).to(cuda)
-    before = pool.launches
-    got = pool.pallas_pool_bwd(xt, y, g, window)
+    g = rng.normal(size=(b, h, w, c)).astype(np.float32)
+
+    def place(a):
+        buf = torch.empty(a.size + offset, device=cuda)
+        t = buf[offset:].view(a.shape)
+        t.copy_(torch.from_numpy(a))
+        return t
+
+    xt = place(x)
+    y = place(np.zeros_like(x))
+    y.copy_(pool.pool_forward(xt.permute(0, 3, 1, 2), window).permute(0, 2, 3, 1))
+    return xt, y, place(g)
+
+
+@pytest.mark.parametrize("variant", pool.VARIANTS)
+@pytest.mark.parametrize("case", POOL, ids=lambda c: "x".join(map(str, c)))
+def test_pool_bwd_kernel_matches_plain_bitwise(cuda, case, variant):
+    """Each variant on every case it takes, bitwise; the fused variant
+    refuses the others. Gradient mass is conserved."""
+    window = case[4]
+    xt, y, g = _pool_case(cuda, case)
+    if variant == "fused" and pool.variant_for(xt.shape, window) != "fused":
+        with pytest.raises(ValueError, match="multiple of 4"):
+            pool.pallas_pool_bwd(xt, y, g, window, variant)
+        return
+    before, before_v = pool.launches, pool.variant_launches[variant]
+    got = pool.pallas_pool_bwd(xt, y, g, window, variant)
     assert pool.launches == before + 1
+    assert pool.variant_launches[variant] == before_v + 1
     want = pool.pallas_pool_bwd_ref(xt, y, g, window)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
-    np.testing.assert_allclose(float(got.sum()), float(g.sum()), rtol=1e-4)
+    np.testing.assert_allclose(float(got.double().sum()), float(g.double().sum()),
+                               rtol=1e-4)
+
+
+@pytest.mark.parametrize("case", POOL[:2], ids=lambda c: "x".join(map(str, c)))
+def test_pool_bwd_misaligned_storage_takes_twopass(cuda, case):
+    """Storage 4 bytes past 16-byte alignment: TMA cannot take it, so the
+    default is twopass, which reads it right; naming fused raises."""
+    xt, y, g = _pool_case(cuda, case, offset=1)
+    assert xt.data_ptr() % 16 == 4
+    assert pool.variant_for(xt.shape, case[4], aligned=False) == "twopass"
+    before = dict(pool.variant_launches)
+    got = pool.pallas_pool_bwd(xt, y, g, case[4])
+    assert pool.variant_launches["twopass"] == before["twopass"] + 1
+    assert pool.variant_launches["fused"] == before["fused"]
+    torch.cuda.synchronize()
+    assert torch.equal(got, pool.pallas_pool_bwd_ref(xt, y, g, case[4]))
+    with pytest.raises(ValueError, match="aligned"):
+        pool.pallas_pool_bwd(xt, y, g, case[4], "fused")
+
+
+def test_pool_bwd_fused_reads_nan_outside_the_image(cuda):
+    """A constant image: every tap inside the image ties, so a corner's
+    window counts 4 and an edge's 6. Had the TMA fill outside the image
+    been 0 (or anything equal to the image), they would count 9."""
+    x = torch.zeros((2, 13, 11, 32), device=cuda)
+    g = torch.ones_like(x)
+    got = pool.pallas_pool_bwd(x, x, g, 3, "fused")
+    torch.cuda.synchronize()
+    assert torch.equal(got, pool.pallas_pool_bwd_ref(x, x, g, 3))
+    assert abs(float(got[0, 0, 0, 0]) - (1 / 4 + 2 / 6 + 1 / 9)) < 1e-6
 
 
 def test_max_pool_s1_on_card_matches_cpu(cuda):

@@ -149,3 +149,29 @@ def test_pool_bwd_wrapper_raises_off_cpu():
     with pytest.raises(RuntimeError, match="no kernel"):
         pool.pallas_pool_bwd(x, x, x, 3)
     assert pool.launches == before
+
+
+@pytest.mark.parametrize("variant", [None, "twopass", "fused"])
+def test_pool_bwd_wrapper_raises_off_cpu_for_every_variant(variant):
+    """Naming a variant does not reach a kernel for a `meta` tensor either;
+    no count moves."""
+    x = torch.zeros((1, 8, 8, 16), device="meta")
+    before = (pool.launches, dict(pool.variant_launches))
+    with pytest.raises(RuntimeError, match="no kernel"):
+        pool.pallas_pool_bwd(x, x, x, 3, variant)
+    assert (pool.launches, pool.variant_launches) == before
+
+
+@pytest.mark.parametrize("size", [25, 65, 129])
+def test_gather_wrapper_raises_off_cpu_at_every_size(size):
+    """A `meta` batch raises at any window size: the shared-memory gate of
+    the earlier kernel is gone, and no count moves."""
+    images = torch.zeros((1, 200, 200, 5), dtype=torch.float32, device="meta")
+    masks = torch.zeros((1, 200, 200), dtype=torch.int32, device="meta")
+    m = torch.zeros(5, device="meta")
+    pos = torch.zeros((2, 3), dtype=torch.int32, device="meta")
+    aug = torch.zeros(2, dtype=torch.int32, device="meta")
+    before = gather.launches
+    with pytest.raises(RuntimeError, match="no kernel"):
+        gather.gather_batch(images, masks, m, m, pos, aug, size)
+    assert gather.launches == before

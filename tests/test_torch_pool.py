@@ -142,3 +142,64 @@ def test_aten_backward_matches_xla_first_max(window):
     pool.pool_forward(x, window).backward(torch.from_numpy(g_np).permute(0, 3, 1, 2))
     np.testing.assert_array_equal(x.grad.permute(0, 2, 3, 1).numpy(),
                                   _xla_grad(x_np, g_np, window))
+
+
+@pytest.mark.parametrize("window", [3, 5, 7])
+@pytest.mark.parametrize("channels", [64, 128, 256])
+def test_variant_for_takes_fused_on_the_nets_pools(channels, window):
+    """Every pool of dilated_icpr_rate6 at width 1.0 (C 64, 128, 256) takes
+    the one-pass kernel at 25 and 65 px, for windows 3, 5 and 7."""
+    for size in (25, 65):
+        assert pool.variant_for((100, size, size, channels), window) == "fused"
+        assert pool.fused_smem(channels, window, pool.fused_tile(size),
+                               pool.fused_tile(size)) <= 227 * 1024
+
+
+@pytest.mark.parametrize("channels", [3, 5, 19])
+def test_variant_for_keeps_twopass_for_ragged_channels(channels):
+    """C not a multiple of 4: the rows are not 16-byte strides, which TMA
+    needs."""
+    assert pool.variant_for((2, 25, 25, channels), 3) == "twopass"
+
+
+def test_variant_for_keeps_twopass_for_a_misaligned_base():
+    assert pool.variant_for((2, 25, 25, 64), 3, aligned=False) == "twopass"
+    assert pool.variant_for((2, 25, 25, 64), 3, aligned=True) == "fused"
+
+
+def test_variant_for_keeps_twopass_past_the_shared_memory():
+    """A window so wide that a tile's halos overflow a block's 227 KB."""
+    assert pool.fused_smem(64, 21, 16, 16) > 227 * 1024
+    assert pool.variant_for((1, 64, 64, 64), 21) == "twopass"
+
+
+@pytest.mark.parametrize("n, tile", [(1, 1), (9, 9), (16, 16), (17, 9), (25, 13),
+                                     (35, 12), (45, 15), (55, 14), (65, 13)])
+def test_fused_tile_cuts_an_extent_evenly(n, tile):
+    """At most 16 pixels a side, as few tiles as that allows, as even as
+    they can be: 65 and 25 cut into 13s, with no tile of 1 pixel."""
+    assert pool.fused_tile(n) == tile
+    tiles = -(-n // tile)
+    assert tiles == -(-n // 16) and (tiles - 1) * tile < n <= tiles * tile
+
+
+def test_fused_smem_counts_three_boxes():
+    """x on 17^2, y and g on 15^2 pixels of 16 channels (13^2 tile, r 1),
+    each rounded to 128 bytes, the barrier and 128 bytes of alignment."""
+    x, yg = 17 * 17 * 16 * 4, 15 * 15 * 16 * 4
+    assert pool.fused_smem(256, 3, 13, 13) == (
+        -(-x // 128) * 128 + 2 * (-(-yg // 128) * 128) + 8 + 128)
+    # C 8: a slice of 8 channels
+    assert pool.fused_smem(8, 3, 13, 13) < pool.fused_smem(16, 3, 13, 13)
+
+
+def test_nhwc_of_a_channels_last_tensor_is_a_view():
+    """The net's activations and gradients are channels_last: the backward
+    hands the kernel NHWC views, and copies only other layouts."""
+    x = torch.randn(2, 8, 5, 7).contiguous(memory_format=torch.channels_last)
+    v = pool._nhwc(x)
+    assert v.data_ptr() == x.data_ptr() and v.is_contiguous()
+    assert v.shape == (2, 5, 7, 8)
+    y = torch.randn(2, 8, 5, 7)
+    assert pool._nhwc(y).data_ptr() != y.data_ptr()
+    assert torch.equal(pool._nhwc(y), y.permute(0, 2, 3, 1))
