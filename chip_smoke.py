@@ -20,7 +20,12 @@ runs without them.
      and on the CPU (plain versions): the same answer; then the three
      timed runs (window float and window int8 on a 1024^2 tile, 5 scales
      25..65; dense int8 on a 2048^2 tile), with K5's launch count held to
-     3 per int8 forward, all of them the wgmma variant;
+     3 per int8 forward, all of them the wgmma variant; then window float
+     again with DYNSEG_FOLD_MEM_GB at 0.02, under every scale's collected
+     buffer, so that each scale folds in bands: the largest collected
+     tensor (`Inferencer.fold_peak_bytes`) within the cap, the vote counts
+     bitwise and the labels (but for ties) equal to the uncapped run's,
+     and its Mpx/s beside the uncapped run's;
   4. K5 kernel vs plain, bitwise, on the int8 activations of one real
      window batch (256 windows of 65^2);
   5. a. K2 (gather_batch) kernel vs plain, bitwise, at B=100 for s in
@@ -46,13 +51,16 @@ runs without them.
   8. K2 and K4 kernel vs plain, bitwise, on the tiles, positions and
      activations of one real train step at 65 px (all six pools fused),
      and whether the pool backward's inputs arrive channels_last (no copy);
-  9. P1 (int8_conv3x3_requant) kernel vs plain, bitwise, on the TPU
-     probe's check shapes, on ragged ones (odd H and W, B=3, C 32 and 160,
+  9. P1 (int8_conv3x3_requant) kernel vs plain, bitwise, both variants
+     (wgmma, the warp-specialised kernel on a persistent grid; mma_sync,
+     the first kernel), on the TPU probe's
+     check shapes, on ragged ones (odd H and W, B=3, C 32 and 160,
      dilations 1, 2, 5, 6) and at the probe's shape 8 x 592^2 x 256,
-     dilation 6, with its CUDA-event time and TOPS;
+     dilation 6, with each one's CUDA-event time, TOPS and share of the
+     bound there;
  10. the int8 conv probe (`python -m dynseg_torch.probes.int8_kernel_probe`
      through its `main`, a few reps): one line per leg, P1's launches
-     counted over the run;
+     counted over the run by variant, every one the wgmma variant;
  11. the command line, `python -m dynseg_torch` in subprocesses at full
      width (3 bands, 2 classes, batch 100, the tiles of phase 7): training
      (40 iterations, checkpoints every 20, EMA + recalibration, K4), testing
@@ -133,6 +141,9 @@ P1_SHAPES = ((2, 16, 16, 128, 2), (1, 32, 32, 128, 6), (3, 17, 23, 32, 1),
              (3, 21, 15, 160, 2), (3, 19, 13, 32, 5), (3, 25, 11, 160, 6),
              (8, 592, 592, 256, 6))
 PROBE_REPS = 5
+# Phase 3's capped window fold: DYNSEG_FOLD_MEM_GB under every scale's
+# collected buffer on the 1024^2 tile (34-39 MB) and over one window batch.
+FOLD_CAP_GB = 0.02
 # The H100 SXM's published dense peaks: int8 tensor-core operations, float32
 # outside the tensor cores, and the memory rate (bytes/s).
 INT8_PEAK, F32_PEAK, HBM_RATE = 1979e12, 67e12, 3.35e12
@@ -365,9 +376,11 @@ def run_slice(weights, int8_conv, card: str) -> dict:
             ("dense int8", config("dense", "int8"), tiles2k))
     int8_forwards = 0
     int8_conv.reset_launches()
+    all_scores = {}
     for name, cfg, tiles in runs:
         t0 = time.perf_counter()
-        scores = validate_test(cfg, weights, tiles, DEVICE, log=lambda *_: None)
+        scores = all_scores[name] = validate_test(cfg, weights, tiles, DEVICE,
+                                                  log=lambda *_: None)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         px = int(np.prod(tiles.valid_hw, axis=1).sum())
@@ -391,7 +404,61 @@ def run_slice(weights, int8_conv, card: str) -> dict:
         raise SystemExit("K5 launch count does not match the int8 forwards")
     if int8_conv.variant_launches["wgmma"] != launches:
         raise SystemExit("K5: a serving block did not take the wgmma variant")
-    return {"launches": launches, "runs": runs}
+    return {"launches": launches, "runs": runs, "scores": all_scores}
+
+
+def check_capped_fold(weights, tiles, uncapped: dict, card: str) -> None:
+    """Phase 3c: window float on the 1024^2 tiles with DYNSEG_FOLD_MEM_GB
+    at FOLD_CAP_GB, so that every scale folds in bands. On tile 0, the
+    uncapped and the capped estimator side by side: the largest collected
+    tensor and the device's peak memory, vote counts bitwise equal, labels
+    equal but for ties (top two vote-averaged probabilities within 1e-5);
+    then the capped validate_test, timed, against the uncapped run's."""
+    from dynseg_torch.infer import Inferencer, validate_test
+
+    cfg = config("window", "none")
+    cap = FOLD_CAP_GB * 1e9
+    inf = Inferencer(cfg, tiles, device=DEVICE)
+    saved = os.environ.pop("DYNSEG_FOLD_MEM_GB", None)
+    out = {}
+    try:
+        for name, env in (("uncapped", None), ("capped", str(FOLD_CAP_GB))):
+            if env is not None:
+                os.environ["DYNSEG_FOLD_MEM_GB"] = env
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            res = inf._window_device(weights, 0)
+            torch.cuda.synchronize()
+            out[name] = (*res, inf.fold_peak_bytes, torch.cuda.max_memory_allocated())
+        t0 = time.perf_counter()
+        scores = validate_test(cfg, weights, tiles, DEVICE, log=lambda *_: None)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        os.environ.pop("DYNSEG_FOLD_MEM_GB", None)
+        if saved is not None:
+            os.environ["DYNSEG_FOLD_MEM_GB"] = saved
+    pred_u, sum_u, cnt_u, peak_u, mem_u = out["uncapped"]
+    pred_c, sum_c, cnt_c, peak_c, mem_c = out["capped"]
+    same_counts = torch.equal(cnt_u, cnt_c)
+    top2 = torch.topk(sum_u / cnt_u[..., None], 2, dim=-1).values
+    differ = pred_u != pred_c
+    ties = bool(((top2[..., 0] - top2[..., 1])[differ] < 1e-5).all())
+    px = int(np.prod(tiles.valid_hw, axis=1).sum())
+    agree = float(np.mean([np.mean(a == b) for a, b in
+                           zip(scores["predictions"], uncapped["predictions"])]))
+    log(f"window float, DYNSEG_FOLD_MEM_GB={FOLD_CAP_GB}: fold_peak_bytes {peak_c} "
+        f"(cap {cap:.0f}; uncapped {peak_u}), device peak memory {mem_c / 1e6:.1f} MB "
+        f"(uncapped {mem_u / 1e6:.1f} MB); tile 0 counts bitwise equal: {same_counts}, "
+        f"labels differing {int(differ.sum())} (all ties: {ties})")
+    log(f"    validate_test capped: OA={scores['oa']:.4f} (uncapped {uncapped['oa']:.4f}) "
+        f"infer_wall_s={scores['infer_wall_s']} ({px / scores['infer_wall_s'] / 1e6:.3f} "
+        f"Mpx/s; uncapped {px / uncapped['infer_wall_s'] / 1e6:.3f}) call wall {wall:.3f} s, "
+        f"label agreement with the uncapped run {agree:.6f} [{card}]")
+    if not (peak_c <= cap < peak_u) or not same_counts or not ties:
+        raise SystemExit("capped window fold: over the cap, or counts or labels differ")
+    if agree < 0.9999 or abs(scores["oa"] - uncapped["oa"]) > 1e-4:
+        raise SystemExit("capped window fold: validate_test differs from the uncapped run")
 
 
 def check_real_activations(weights, int8_conv) -> None:
@@ -727,35 +794,47 @@ def check_train_real_activations(gather, pool) -> None:
 
 
 def check_p1_kernel(p1) -> dict:
-    """Phase 9: P1 kernel vs plain, bitwise. The scale spreads the codes
-    over the whole int8 range, a few percent clipped at each bound."""
+    """Phase 9: both P1 variants vs plain, bitwise, at every shape; at the
+    probe's shape, each timed with its share of the bound. The scale
+    spreads the codes over the whole int8 range, a few percent clipped at
+    each bound."""
     dev = torch.device(DEVICE)
     gen = torch.Generator(dev).manual_seed(9)
+    runs = (("wgmma", {}), ("mma_sync", {"variant": "mma_sync"}))
     for b, h, w, c, dil in P1_SHAPES:
         x = torch.randint(-128, 128, (b, h, w, c), generator=gen, device=dev,
                           dtype=torch.int8)
         wt = torch.randint(-128, 128, (3, 3, c, c), generator=gen, device=dev,
                            dtype=torch.int8)
         scale = 64.0 / (math.sqrt(9 * c) * 73.9 ** 2)
-        got = p1.int8_conv3x3_requant(x, wt, scale, dil)
+        if p1.variant_for(dil, x.data_ptr() % 16 == 0) != "wgmma":
+            raise SystemExit(f"P1 {(b, h, w, c, dil)}: the probe's input does not take wgmma")
         want = p1.int8_conv3x3_requant_ref(x, wt, scale, dil)
-        torch.cuda.synchronize()
-        same = torch.equal(got, want)
+        for name, kw in runs:
+            got = p1.int8_conv3x3_requant(x, wt, scale, dil, **kw)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                diff = (got.int() - want.int()).abs().max().item()
+                raise SystemExit(f"P1 {(b, h, w, c, dil)} {name}: kernel disagrees "
+                                 f"with plain ({diff})")
+            del got
         lo, hi = float((want == -128).float().mean()), float((want == 127).float().mean())
-        log(f"P1 x({b},{h},{w},{c}) d{dil}: kernel == plain bitwise: {same} "
+        log(f"P1 x({b},{h},{w},{c}) d{dil}: every variant == plain bitwise: True "
             f"(codes at -128 {lo:.4f}, at 127 {hi:.4f})")
-        if not same:
-            diff = (got.int() - want.int()).abs().max().item()
-            raise SystemExit(f"P1 {(b, h, w, c, dil)}: kernel disagrees with plain ({diff})")
-    ms = time_ms(lambda: p1.int8_conv3x3_requant(x, wt, scale, dil), 10)
-    plain = time_ms(lambda: p1.int8_conv3x3_requant_ref(x, wt, scale, dil), 2)
     ops = 2.0 * b * h * w * 9 * c * c
     bound, bound_by = bound_ms(ops, 2 * x.numel() + wt.numel(), INT8_PEAK)
-    log(f"P1 at the probe's shape: kernel {ms:.3f} ms ({ops / ms / 1e9:.1f} TOPS, "
-        f"{bound / ms:.3f} of the bound {bound:.4f} ms, {bound_by}) plain {plain:.3f} ms")
-    del x, wt, got, want
+    times = {name: time_ms(lambda: p1.int8_conv3x3_requant(x, wt, scale, dil, **kw), 10)
+             for name, kw in runs}
+    plain = time_ms(lambda: p1.int8_conv3x3_requant_ref(x, wt, scale, dil), 2)
+    log(f"P1 at the probe's shape x({b},{h},{w},{c}) d{dil}: bound {bound:.4f} ms "
+        f"({bound_by}: {ops:.3e} ops); plain {plain:.3f} ms")
+    for name, ms in times.items():
+        tag = {"wgmma": "the default", "mma_sync": "the first kernel"}[name]
+        log(f"    {name:8s} ({tag}): {ms:.4f} ms, {ops / ms / 1e9:.1f} TOPS, "
+            f"{bound / ms:.3f} of the bound")
+    del x, wt, want
     torch.cuda.empty_cache()
-    return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain, "bound_ms": bound,
+    return {"max_abs_err": 0.0, "ms": times["wgmma"], "plain_ms": plain, "bound_ms": bound,
             "bound_by": bound_by}
 
 
@@ -763,16 +842,19 @@ def run_probe(p1) -> int:
     """Phase 10: the probe's main; returns P1's launches in it."""
     from dynseg_torch.probes import int8_kernel_probe
 
-    p1.launches = 0
+    p1.reset_launches()
     out = f"{OUT_DIR}/int8_kernel_probe.json"
     if int8_kernel_probe.main(["--reps", str(PROBE_REPS), "--out", out]) != 0:
         raise SystemExit("int8 kernel probe failed")
     launches = p1.launches
     # 2 check shapes + 3 warm-up + the timed reps of leg C.
     expected = len(int8_kernel_probe.CHECK_SHAPES) + 3 + PROBE_REPS
-    log(f"P1 launches in the probe: {launches} (expected {expected})")
+    log(f"P1 launches in the probe: {launches} (expected {expected}), by variant "
+        f"{p1.variant_launches}")
     if launches != expected:
         raise SystemExit("P1 launch count does not match the probe")
+    if p1.variant_launches["wgmma"] != launches:
+        raise SystemExit("P1: a launch of the probe did not take the wgmma variant")
     torch.cuda.empty_cache()
     return launches
 
@@ -1043,6 +1125,7 @@ def main() -> int:
                seeded_weights(config("window", "none").model, 3).items()}
     check_against_cpu(weights)
     k5.update(run_slice(weights, int8_conv, card))
+    check_capped_fold(weights, k5["runs"][0][2], k5.pop("scores")["window float"], card)
     check_real_activations(weights, int8_conv)
     if args.profile:
         profile_serving(args.profile, weights, k5.pop("runs"))
@@ -1079,7 +1162,7 @@ def main() -> int:
         entry("int8_block_conv", KERNEL_SOURCE, KERNEL_REPLACES, k5),
         entry("patch_gather", GATHER_SOURCE, GATHER_REPLACES, k2),
         entry("pool_bwd", POOL_SOURCE, POOL_REPLACES, k4),
-        entry("int8_conv3x3", P1_SOURCE, P1_REPLACES, p1)]}))
+        entry("int8_conv3x3.wgmma", P1_SOURCE, P1_REPLACES, p1)]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

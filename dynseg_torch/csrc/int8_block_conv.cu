@@ -50,7 +50,7 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#include "tma.cuh"  // stage barriers, tensor-map encoders
+#include "tma.cuh"  // stage barriers, TMA copies, descriptors, tensor maps
 
 namespace {
 
@@ -82,13 +82,6 @@ constexpr int BAR_OFFSET = STAGES * STAGE_BYTES;   // one barrier a stage
 constexpr int SMEM_BYTES = BAR_OFFSET + 8 * STAGES + 1024;  // + alignment
 constexpr int LDC_F32 = BN + 8;             // staged f32 row, floats
 constexpr int LDC_S8 = BN + 16;             // staged int8 row, bytes
-
-// Shared-memory matrix descriptor of a K-major operand in the 128-byte
-// swizzle: rows of 128 bytes, 8-row groups 1024 bytes apart.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) |
-         (64ull << 32) | (1ull << 62);
-}
 
 // Keeps the compiler from moving accumulator reads or writes across the
 // asynchronous products.
@@ -129,6 +122,7 @@ __device__ __forceinline__ void wgmma_m64n128k32(int (&d)[64], uint64_t da,
 
 using tma::mbar_init;
 using tma::mbar_wait;
+using tma::sw128_desc;
 
 // One thread: arm the stage's barrier for `bytes`, then copy the weight
 // box (128 Cin bytes x 128 output channels of one tap) at (c, n, tap) by TMA
@@ -136,28 +130,16 @@ using tma::mbar_wait;
 // zero.
 __device__ __forceinline__ void tma_load_b(uint32_t dst, const CUtensorMap* map, int c,
                                            int n, int tap, uint32_t bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-               "r"(bytes) : "memory");
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c), "r"(n), "r"(tap), "r"(bar)
-      : "memory");
+  tma::mbar_expect_tx(bar, bytes);
+  tma::load_tile_3d(dst, map, c, n, tap, bar);
 }
 
 // One thread: 128 consecutive output pixels' input rows (128 Cin bytes
-// each) by TMA in im2col mode. The walk starts at output pixel (n, h, w)
-// shifted by -pad_lo and adds the tap's offset (dx, dy) = (kx*d, ky*d);
-// outside the image reads as zero, which is the SAME border.
+// each) by TMA in im2col mode, shifted by the tap's offset (dx, dy).
 __device__ __forceinline__ void tma_load_a(uint32_t dst, const CUtensorMap* map, int c,
                                            int w, int h, int n, uint16_t dx, uint16_t dy,
                                            uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.im2col.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3, %4, %5}], [%6], {%7, %8};\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c), "r"(w), "r"(h), "r"(n), "r"(bar),
-      "h"(dx), "h"(dy)
-      : "memory");
+  tma::load_im2col_4d(dst, map, c, w, h, n, dx, dy, bar);
 }
 
 template <bool REQUANT>
@@ -293,49 +275,6 @@ k5_wgmma_kernel(const __grid_constant__ CUtensorMap wmap,
       }
     }
   }
-}
-
-// The weights (k*k, Cout, Cin) as a 3-D TMA tensor map: boxes of 128 Cin
-// bytes x 128 output channels of one tap, 128-byte swizzled; Cin and Cout
-// past the tensor read as zeros.
-cudaError_t weight_map(CUtensorMap* map, const void* w, int Cin, int Cout, int taps) {
-  PFN_cuTensorMapEncodeTiled_v12000 encode;
-  const cudaError_t e = tma::encode_tiled(&encode);
-  if (e != cudaSuccess) return e;
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(Cin), static_cast<cuuint64_t>(Cout),
-                              static_cast<cuuint64_t>(taps)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(Cin),
-                                 static_cast<cuuint64_t>(Cin) * Cout};
-  const cuuint32_t box[3] = {BK, BN, 1};
-  const cuuint32_t unit[3] = {1, 1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, const_cast<void*>(w),
-                            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
-// The input (B, H, W, Cin) as a 4-D im2col TMA map: 128 pixels of 128 Cin
-// bytes a load, walked over the output pixels shifted by -pad_lo.
-cudaError_t input_map(CUtensorMap* map, const void* x, int B, int H, int W, int Cin,
-                      int pad_lo) {
-  PFN_cuTensorMapEncodeIm2col_v12000 encode;
-  const cudaError_t e = tma::encode_im2col(&encode);
-  if (e != cudaSuccess) return e;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(Cin), static_cast<cuuint64_t>(W),
-                              static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(Cin),
-                                 static_cast<cuuint64_t>(Cin) * W,
-                                 static_cast<cuuint64_t>(Cin) * W * H};
-  const int lower[2] = {-pad_lo, -pad_lo};
-  const int upper[2] = {-pad_lo, -pad_lo};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 4, const_cast<void*>(x),
-                            dims, strides, lower, upper, BK, BM, unit,
-                            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 }  // namespace tc
@@ -542,8 +481,8 @@ extern "C" int dynseg_int8_block_conv(const void* x, const void* w,
       ready[requant ? 1 : 0] = true;
     }
     CUtensorMap wmap, xmap;
-    cudaError_t e = tc::weight_map(&wmap, w, Cin, Cout, k * k);
-    if (e == cudaSuccess) e = tc::input_map(&xmap, x, B, H, W, Cin, pad_lo);
+    cudaError_t e = tma::weight_map(&wmap, w, Cin, Cout, k * k, tc::BK, tc::BN);
+    if (e == cudaSuccess) e = tma::input_map(&xmap, x, B, H, W, Cin, pad_lo, tc::BK, tc::BM);
     if (e != cudaSuccess) return static_cast<int>(e);
     const dim3 grid(static_cast<unsigned>((M + tc::BM - 1) / tc::BM),
                     static_cast<unsigned>((Cout + tc::BN - 1) / tc::BN));

@@ -6,7 +6,10 @@ mirror-padded tile for every scale, sums softmax probabilities over
 overlaps and scales, and argmaxes. The uniform-stride bulk of each
 scale's windows is placed with one `F.fold` (the overlap-add the
 reference's grid-fold builds by hand); the few origins clamped to the
-buffer edge are added one by one. Dense mode runs one forward per pixel:
+buffer edge are added one by one. A scale whose collected probabilities
+would pass DYNSEG_FOLD_MEM_GB (default 2.0, the reference's cap and
+estimate) is folded in bands of origin rows, each band's buffer under the
+cap. Dense mode runs one forward per pixel:
 blocks with a halo of at least the receptive radius reproduce the
 whole-tile forward, and their centres overwrite the map.
 
@@ -18,6 +21,7 @@ device mesh and host streaming past hbm_budget_gb.
 
 from __future__ import annotations
 
+import os
 import time
 import warnings
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -81,6 +85,9 @@ class Inferencer:
         # The pad covers both the window context and the dense halo.
         self.pad = max(max(self.scales), cfg.infer.dense_halo)
         self.nc = cfg.model.num_classes
+        # Bytes of the largest tensor collected for a window fold in the
+        # last window-mode call (`_window_device`).
+        self.fold_peak_bytes = 0
         self.set_tiles(tiles)
 
     def _float_apply(self, variables, x):
@@ -141,12 +148,46 @@ class Inferencer:
         x = (tile[rows, cols].float() - self.mean) / self.std
         return torch.softmax(self._apply(variables, x).float(), dim=-1)
 
+    def _collected(self, t: torch.Tensor) -> None:
+        self.fold_peak_bytes = max(self.fold_peak_bytes, t.numel() * t.element_size())
+
+    def _fold(self, variables, tile, prob, cnt, s: int, stride: int,
+              rows_u: Sequence[int], cols_u: Sequence[int],
+              tails: Sequence[Tuple[int, int]]) -> None:
+        """Add the windows rows_u x cols_u (a uniform-stride grid) to prob
+        and cnt with one `F.fold`, then `tails` one by one."""
+        B = self.cfg.infer.window_batch
+        bulk = [(r, c) for r in rows_u for c in cols_u]
+        origins = np.array(bulk + list(tails), np.int64).reshape(-1, 2)
+        probs = torch.cat([
+            self._probs(variables, tile, origins[i:i + B], s)
+            for i in range(0, len(origins), B)])
+        self._collected(probs)
+        nbu = len(bulk)
+        if nbu:
+            R = (len(rows_u) - 1) * stride + s
+            C = (len(cols_u) - 1) * stride + s
+            cols_in = probs[:nbu].permute(3, 1, 2, 0).reshape(
+                1, self.nc * s * s, nbu)
+            self._collected(cols_in)
+            placed = F.fold(cols_in, (R, C), s, stride=stride)[0]
+            ones = torch.ones((1, s * s, nbu), device=self.device)
+            votes = F.fold(ones, (R, C), s, stride=stride)[0, 0]
+            r0, c0 = rows_u[0], cols_u[0]
+            prob[r0:r0 + R, c0:c0 + C] += placed.permute(1, 2, 0)
+            cnt[r0:r0 + R, c0:c0 + C] += votes
+        for (r, c), p in zip(tails, probs[nbu:]):
+            prob[r:r + s, c:c + s] += p
+            cnt[r:r + s, c:c + s] += 1.0
+
     # ------------------------------------------------------------------ #
     @torch.inference_mode()
     def _window_device(self, variables, tile_idx: int,
                        scales: Optional[Sequence[int]] = None):
         """Window voting left on the device: (pred uint8, summed probs,
-        vote counts), all in valid coordinates."""
+        vote counts), all in valid coordinates. `fold_peak_bytes` is then
+        the size of the largest tensor collected for a fold (a scale's or a
+        band's probabilities, or their permuted copy)."""
         scales = [int(s) for s in (scales or self.scales)]
         h, w = (int(x) for x in self.valid_hw[tile_idx])
         Hp, Wp = self.padded_hw
@@ -155,6 +196,8 @@ class Inferencer:
                            device=self.device)
         cnt = torch.zeros((Hp, Wp), dtype=torch.float32, device=self.device)
         B = self.cfg.infer.window_batch
+        cap = float(os.environ.get("DYNSEG_FOLD_MEM_GB", "2.0")) * 1e9
+        self.fold_peak_bytes = 0
         for s in scales:
             # Clamped to the window size: a larger stride leaves holes.
             stride = min(s, max(1, int(round(s * self.cfg.infer.stride_fraction))))
@@ -162,27 +205,30 @@ class Inferencer:
             cols = window_origins(self.pad, self.pad + w, s, stride, Wp - s)
             rows_u, rows_t = _split_uniform(rows, stride)
             cols_u, cols_t = _split_uniform(cols, stride)
-            bulk = [(r, c) for r in rows_u for c in cols_u]
             tails = ([(r, c) for r in rows_u for c in cols_t]
                      + [(r, c) for r in rows_t for c in cols])
-            origins = np.array(bulk + tails, np.int64).reshape(-1, 2)
-            probs = torch.cat([
-                self._probs(variables, tile, origins[i:i + B], s)
-                for i in range(0, len(origins), B)])
-            nbu = len(bulk)
-            R = (len(rows_u) - 1) * stride + s
-            C = (len(cols_u) - 1) * stride + s
-            cols_in = probs[:nbu].permute(3, 1, 2, 0).reshape(
-                1, self.nc * s * s, nbu)
-            placed = F.fold(cols_in, (R, C), s, stride=stride)[0]
-            ones = torch.ones((1, s * s, nbu), device=self.device)
-            votes = F.fold(ones, (R, C), s, stride=stride)[0, 0]
-            r0, c0 = rows_u[0], cols_u[0]
-            prob[r0:r0 + R, c0:c0 + C] += placed.permute(1, 2, 0)
-            cnt[r0:r0 + R, c0:c0 + C] += votes
-            for (r, c), p in zip(tails, probs[nbu:]):
-                prob[r:r + s, c:c + s] += p
-                cnt[r:r + s, c:c + s] += 1.0
+            per_window = s * s * self.nc * 4
+            n = len(rows) * len(cols)
+            # Windows a band may collect: all of them where the reference's
+            # estimate of the scale's buffer (dynseg/infer.py `_use_fold`:
+            # whole window batches of every window) is within the cap, else
+            # as many whole window batches as the cap holds, at least one.
+            if -(-n // B) * B * per_window <= cap:
+                per_band = n
+            else:
+                per_band = max(1, int(cap // per_window) // B) * B
+            # Bands of whole origin rows; the tails fill the last band's
+            # room, and any left over go in bands of their own.
+            nr = max(1, per_band // len(cols_u))
+            i = t = 0
+            while i < len(rows_u) or t < len(tails):
+                band = rows_u[i:i + nr]
+                i += len(band)
+                room = (max(0, per_band - len(band) * len(cols_u))
+                        if i == len(rows_u) else 0)
+                self._fold(variables, tile, prob, cnt, s, stride, band, cols_u,
+                           tails[t:t + room])
+                t += room
         p = self.pad
         valid = prob[p:p + h, p:p + w]
         pred = torch.argmax(valid, dim=-1).to(torch.uint8)

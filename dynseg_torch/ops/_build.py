@@ -59,8 +59,8 @@ def _bind(lib: ctypes.CDLL) -> None:
     fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, p]
     fn.restype = ctypes.c_int
     fn = lib.dynseg_int8_conv3x3
-    # x, w_packed, out, B, H, W, C, dilation, scale, stream
-    fn.argtypes = [p, p, p, i, i, i, i, i, f, p]
+    # x, w_packed, out, B, H, W, C, dilation, scale, variant, stream
+    fn.argtypes = [p, p, p, i, i, i, i, i, f, i, p]
     fn.restype = ctypes.c_int
 
 

@@ -10,19 +10,44 @@ requant epilogue:
 It rounds before it clips, and to -128: not K5's epilogue.
 
 `int8_conv3x3_requant` launches the hand-written Hopper kernel
-(csrc/int8_conv3x3.cu, on the tensor cores) for CUDA tensors and takes the
-plain PyTorch version, `int8_conv3x3_requant_ref`, only for tensors on the
-CPU. `launches` counts the kernel's launches.
+(csrc/int8_conv3x3.cu) for CUDA tensors and takes the plain PyTorch
+version, `int8_conv3x3_requant_ref`, only for tensors on the CPU.
+
+The kernel has two variants, chosen by `variant_for` from the shape and
+the pointers alone: "wgmma", warp-specialised on the tensor cores and fed
+by TMA, where the input is 16-byte aligned and the dilation under 128 (the
+range of TMA's im2col corners), and "mma_sync", the first kernel, for any
+other input, such as a view that starts off 16-byte alignment. `launches`
+counts the wrapper's kernel launches, `variant_launches` those of each
+variant.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-# Kernel launches since the last reset (callers set it to 0).
+# Kernel launches since the last reset (callers set them to 0).
 launches = 0
+VARIANTS = ("mma_sync", "wgmma")  # the C entry's variant codes
+variant_launches = dict.fromkeys(VARIANTS, 0)
+
+
+def reset_launches() -> None:
+    global launches
+    launches = 0
+    for v in VARIANTS:
+        variant_launches[v] = 0
+
+
+def variant_for(dilation: int, aligned: bool = True) -> str:
+    """The kernel variant a launch takes: "wgmma" where TMA can copy the
+    input (`aligned`: a 16-byte-aligned base) and its im2col corners
+    reach the SAME pad (dilation < 128), else "mma_sync"."""
+    return "wgmma" if aligned and dilation < 128 else "mma_sync"
 
 
 def _check(x: torch.Tensor, w: torch.Tensor, dilation: int) -> None:
@@ -54,12 +79,13 @@ def int8_conv3x3_requant_ref(x: torch.Tensor, w: torch.Tensor, scale: float,
 
 
 def int8_conv3x3_requant(x: torch.Tensor, w: torch.Tensor, scale: float,
-                         dilation: int) -> torch.Tensor:
+                         dilation: int, variant: Optional[str] = None) -> torch.Tensor:
     """P1: the conv and its requant epilogue as one launch.
 
     x: (B, H, W, C) int8, NHWC-contiguous on the card, C % 32 == 0
     w: (3, 3, C, C) int8 HWIO
     scale: float32 scalar, passed to the kernel by value
+    variant: default `variant_for` the dilation and x's alignment
     Returns (B, H, W, C) int8.
 
     CPU tensors take `int8_conv3x3_requant_ref`; CUDA tensors launch the
@@ -75,6 +101,14 @@ def int8_conv3x3_requant(x: torch.Tensor, w: torch.Tensor, scale: float,
         raise ValueError("int8_conv3x3_requant: x must be NHWC-contiguous")
     if w.device != x.device:
         raise ValueError(f"operands on {w.device} and {x.device}")
+    chosen = variant_for(dilation, x.data_ptr() % 16 == 0)
+    variant = variant or chosen
+    if variant not in VARIANTS:
+        raise ValueError(f"int8_conv3x3_requant: unknown variant {variant!r}")
+    if variant == "wgmma" and chosen != "wgmma":
+        raise ValueError(f"variant wgmma needs a 16-byte-aligned x and a dilation "
+                         f"under 128, got dilation {dilation}, x at "
+                         f"{x.data_ptr() % 16} bytes past alignment")
     bsz, h, wd, c = x.shape
     # (9, C out, C in): both GEMM operands contiguous along K.
     wp = w.permute(0, 1, 3, 2).reshape(9, c, c).contiguous()
@@ -83,11 +117,12 @@ def int8_conv3x3_requant(x: torch.Tensor, w: torch.Tensor, scale: float,
         return out
     from dynseg_torch.ops._build import load_library
 
-    lib = load_library()
-    err = lib.dynseg_int8_conv3x3(
+    err = load_library().dynseg_int8_conv3x3(
         x.data_ptr(), wp.data_ptr(), out.data_ptr(), bsz, h, wd, c, dilation,
-        float(np.float32(scale)), torch.cuda.current_stream(x.device).cuda_stream)
+        float(np.float32(scale)), VARIANTS.index(variant),
+        torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError(f"int8_conv3x3_requant launch failed: CUDA error {err}")
     launches += 1
+    variant_launches[variant] += 1
     return out

@@ -13,7 +13,9 @@ Four legs at the arithmetic of the serving block, a 3x3 dilation-6
   B   K5 (dynseg_torch.ops.int8_conv.int8_block_conv_packed, requant
       on), the shipped int8 conv: its wgmma variant on the tensor cores;
   C   P1 (dynseg_torch.ops.int8_probe_conv.int8_conv3x3_requant): the
-      probe's shifted-matmul conv on the tensor cores (mma.sync s8).
+      probe's shifted-matmul conv on the tensor cores, in the variant the
+      wrapper chooses (warp-specialised wgmma s8 fed by TMA for an aligned
+      input); the leg records the variant and its time against leg B's.
 
     python -m dynseg_torch.probes.int8_kernel_probe [--reps 20] [--hw 592]
         [--check_only] [--out PATH]
@@ -114,12 +116,13 @@ def probe_k5(batch: int, hw: int, c: int, dil: int, reps: int, peak) -> dict:
 
 
 def probe_p1(batch: int, hw: int, c: int, dil: int, reps: int, peak) -> dict:
-    from dynseg_torch.ops.int8_probe_conv import int8_conv3x3_requant
+    from dynseg_torch.ops import int8_probe_conv
 
     x, w = _conv_inputs(batch, hw, c)
-    dt = time_s(lambda: int8_conv3x3_requant(x, w, CHECK_SCALE, dil), reps)
-    return _leg(2.0 * batch * hw * hw * 9 * c * c, dt, peak,
-                batch=batch, hw=hw, c=c, dil=dil)
+    variant = int8_probe_conv.variant_for(dil, x.data_ptr() % 16 == 0)
+    dt = time_s(lambda: int8_probe_conv.int8_conv3x3_requant(x, w, CHECK_SCALE, dil), reps)
+    return {**_leg(2.0 * batch * hw * hw * 9 * c * c, dt, peak,
+                   batch=batch, hw=hw, c=c, dil=dil), "variant": variant}
 
 
 def check_kernel() -> dict:
@@ -173,14 +176,21 @@ def main(argv: Optional[List[str]] = None) -> int:
                  lambda: probe_matmul(8 * args.hw * 74, 256, 256, args.reps, peak)),
                 ("B_k5_int8_block_conv", "K5 wgmma s8",
                  lambda: probe_k5(8, args.hw, 256, 6, args.reps, peak)),
-                ("C_p1_int8_conv3x3", "P1 mma.sync s8",
+                ("C_p1_int8_conv3x3", "P1",
                  lambda: probe_p1(8, args.hw, 256, 6, args.reps, peak)))
         for key, what, run in legs:
             leg = payload[key] = run()
             pct = leg["pct_int8_peak"]
+            if "variant" in leg:
+                what = f"{what} {leg['variant']}"
             print(f"{key} ({what}): {leg['s']:.6f} s, {leg['tops']:.1f} TOPS, "
                   f"{'n/a' if pct is None else f'{pct:.1f}%'} of peak", flush=True)
             torch.cuda.empty_cache()
+        leg_c = payload["C_p1_int8_conv3x3"]
+        leg_c["leg_b_s"] = payload["B_k5_int8_block_conv"]["s"]
+        leg_c["vs_leg_b"] = leg_c["leg_b_s"] / leg_c["s"]
+        print(f"leg C ({leg_c['variant']}) vs leg B (K5): {leg_c['vs_leg_b']:.3f}x "
+              f"the speed", flush=True)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

@@ -302,31 +302,85 @@ def test_train_step_on_card_matches_cpu(cuda):
 
 # P1's (B, H, W, C, dilation): the TPU probe's check shapes, then ragged
 # ones: odd H and W, B 3, C 32 and 160 (a half K chunk), dilations 1, 2,
-# 5, 6, a dilation wider than the image, and a 1 x 1 image.
+# 5, 6, a dilation wider than the image, and a 1 x 1 image; then C 512 (two
+# N tiles), dilation 20, and the probe's shape (chip_smoke.P1_SHAPES).
 P1 = [
     (2, 16, 16, 128, 2), (1, 32, 32, 128, 6), (3, 17, 23, 32, 1),
     (3, 21, 15, 160, 2), (3, 19, 13, 32, 5), (3, 25, 11, 160, 6),
-    (1, 5, 7, 64, 6), (1, 1, 1, 32, 1),
+    (1, 5, 7, 64, 6), (1, 1, 1, 32, 1), (2, 37, 41, 512, 3),
+    (1, 60, 50, 256, 20), (8, 592, 592, 256, 6),
 ]
+# Each launch of a case: the default (wgmma) and the mma.sync kernel.
+P1_RUNS = {"wgmma": {}, "mma_sync": {"variant": "mma_sync"}}
 
 
-@pytest.mark.parametrize("case", P1, ids=lambda c: "x".join(map(str, c)))
-def test_p1_kernel_matches_plain_bitwise(cuda, case):
+def _p1_case(cuda, case):
     b, h, w, c, dil = case
     rng = np.random.default_rng(sum(case))
     x = torch.from_numpy(rng.integers(-128, 128, (b, h, w, c), dtype=np.int8)).to(cuda)
     wt = torch.from_numpy(rng.integers(-128, 128, (3, 3, c, c), dtype=np.int8)).to(cuda)
+    return x, wt
+
+
+@pytest.mark.parametrize("run", sorted(P1_RUNS))
+@pytest.mark.parametrize("case", P1, ids=lambda c: "x".join(map(str, c)))
+def test_p1_kernel_matches_plain_bitwise(cuda, case, run):
+    b, h, w, c, dil = case
+    x, wt = _p1_case(cuda, case)
+    kw = P1_RUNS[run]
+    variant = kw.get("variant", "wgmma")
+    assert int8_probe_conv.variant_for(dil, x.data_ptr() % 16 == 0) == "wgmma"
     for scale in (1 / 512, 64.0 / (np.sqrt(9 * c) * 73.9 ** 2)):
-        before = int8_probe_conv.launches
-        got = int8_probe_conv.int8_conv3x3_requant(x, wt, scale, dil)
+        before, by_variant = int8_probe_conv.launches, dict(int8_probe_conv.variant_launches)
+        got = int8_probe_conv.int8_conv3x3_requant(x, wt, scale, dil, **kw)
         assert int8_probe_conv.launches == before + 1
+        assert int8_probe_conv.variant_launches == {
+            v: n + (v == variant) for v, n in by_variant.items()}
         want = int8_probe_conv.int8_conv3x3_requant_ref(x, wt, scale, dil)
         torch.cuda.synchronize()
         assert got.dtype == torch.int8 and got.shape == x.shape
         assert torch.equal(got, want)
     if h * w > 1:  # 1/512 saturates: both bounds are exercised
-        got = int8_probe_conv.int8_conv3x3_requant(x, wt, 1 / 512, dil)
+        got = int8_probe_conv.int8_conv3x3_requant(x, wt, 1 / 512, dil, **kw)
         assert (got == -128).any() and (got == 127).any()
+
+
+@pytest.mark.parametrize("offset", [1, 4, 8, 15])
+def test_p1_misaligned_input_takes_mma_sync(cuda, offset):
+    """x 1-15 bytes past 16-byte alignment: TMA cannot copy it, so the
+    default is the mma.sync kernel, which reads it a byte at a time; naming
+    wgmma raises."""
+    case = (2, 13, 11, 64, 2)
+    x0, wt = _p1_case(cuda, case)
+    buf = torch.empty(x0.numel() + 16, dtype=torch.int8, device=cuda)
+    x = buf[offset:offset + x0.numel()].view(x0.shape)
+    x.copy_(x0)
+    assert x.data_ptr() % 16 == offset and x.is_contiguous()
+    assert int8_probe_conv.variant_for(2, aligned=False) == "mma_sync"
+    before = dict(int8_probe_conv.variant_launches)
+    got = int8_probe_conv.int8_conv3x3_requant(x, wt, 1 / 512, 2)
+    assert int8_probe_conv.variant_launches["mma_sync"] == before["mma_sync"] + 1
+    assert int8_probe_conv.variant_launches["wgmma"] == before["wgmma"]
+    torch.cuda.synchronize()
+    assert torch.equal(got, int8_probe_conv.int8_conv3x3_requant_ref(x0, wt, 1 / 512, 2))
+    with pytest.raises(ValueError, match="aligned"):
+        int8_probe_conv.int8_conv3x3_requant(x, wt, 1 / 512, 2, "wgmma")
+
+
+def test_p1_wide_dilation_takes_mma_sync(cuda):
+    """A dilation of 128 or more is past TMA's im2col corners: the default
+    is the mma.sync kernel, bitwise equal to plain; naming wgmma raises."""
+    case = (1, 3, 3, 32, 130)
+    x, wt = _p1_case(cuda, case)
+    assert int8_probe_conv.variant_for(130, x.data_ptr() % 16 == 0) == "mma_sync"
+    before = dict(int8_probe_conv.variant_launches)
+    got = int8_probe_conv.int8_conv3x3_requant(x, wt, 1 / 512, 130)
+    assert int8_probe_conv.variant_launches == {
+        v: n + (v == "mma_sync") for v, n in before.items()}
+    torch.cuda.synchronize()
+    assert torch.equal(got, int8_probe_conv.int8_conv3x3_requant_ref(x, wt, 1 / 512, 130))
+    with pytest.raises(ValueError, match="dilation"):
+        int8_probe_conv.int8_conv3x3_requant(x, wt, 1 / 512, 130, "wgmma")
 
 
 def test_p1_kernel_refuses_strided_input(cuda):

@@ -159,3 +159,82 @@ def test_tta_is_refused(tiles96):
     cfg = dataclasses.replace(_cfg(), infer=InferConfig(tta=True))
     with pytest.raises(NotImplementedError):
         infer.Inferencer(_port(cfg), _port(tiles96), device="cpu")
+
+
+def _window_run(cfg, tiles, variables, monkeypatch, cap_gb):
+    """The port's window estimator on tile 0 with DYNSEG_FOLD_MEM_GB at
+    `cap_gb` (None: unset), recording the bytes of every tensor it gets
+    from torch.cat or hands to F.fold."""
+    if cap_gb is None:
+        monkeypatch.delenv("DYNSEG_FOLD_MEM_GB", raising=False)
+    else:
+        monkeypatch.setenv("DYNSEG_FOLD_MEM_GB", str(cap_gb))
+    seen = []
+    cat, fold = torch.cat, torch.nn.functional.fold
+
+    def watched_cat(*args, **kwargs):
+        out = cat(*args, **kwargs)
+        seen.append(out.numel() * out.element_size())
+        return out
+
+    def watched_fold(x, *args, **kwargs):
+        seen.append(x.numel() * x.element_size())
+        return fold(x, *args, **kwargs)
+
+    tinf = infer.Inferencer(_port(cfg), _port(tiles), device="cpu")
+    with monkeypatch.context() as m:
+        m.setattr(torch, "cat", watched_cat)
+        m.setattr(torch.nn.functional, "fold", watched_fold)
+        out = [a.numpy() for a in tinf._window_device(flax_to_torch(variables), 0)]
+    return out, seen, tinf.fold_peak_bytes
+
+
+def _scale_buffers(cfg, tiles):
+    """Bytes of each scale's whole collected buffer: every window's
+    probabilities, as the port collects them below the cap."""
+    pad = max(max(cfg.infer.scales), cfg.infer.dense_halo)
+    h, w = (int(v) for v in tiles.valid_hw[0])
+    hp, wp = h + 2 * pad, w + 2 * pad
+    out = {}
+    for s in cfg.infer.scales:
+        stride = min(s, max(1, int(round(s * cfg.infer.stride_fraction))))
+        n = (len(infer.window_origins(pad, pad + h, s, stride, hp - s))
+             * len(infer.window_origins(pad, pad + w, s, stride, wp - s)))
+        out[s] = n * s * s * cfg.model.num_classes * 4
+    return out
+
+
+# Caps in GB between one window batch of 32 (21 / 43 KB at s = 9 / 13)
+# and a scale's buffer (~440 KB): every scale is folded in bands.
+@pytest.mark.parametrize("cap_gb", [6e-5, 1.5e-4])
+def test_capped_window_fold_stays_under_cap_and_matches_reference(
+        tiles96, monkeypatch, cap_gb):
+    cfg = _cfg(window_batch=32)
+    variables = _variables(cfg, tiles96)
+    buffers = _scale_buffers(cfg, tiles96)
+    cap = cap_gb * 1e9
+    assert min(buffers.values()) > cap
+    (pt, sum_t, cnt_t), seen, peak = _window_run(cfg, tiles96, variables,
+                                                 monkeypatch, cap_gb)
+    assert seen and max(seen) <= cap
+    assert 0 < peak <= cap and peak == max(seen)
+
+    jcfg = dataclasses.replace(cfg, infer=dataclasses.replace(cfg.infer,
+                                                              window_fold="off"))
+    pj, sum_j, cnt_j = (np.asarray(a) for a in
+                        jax_infer.Inferencer(jcfg, tiles96)._window_device(variables, 0))
+    np.testing.assert_array_equal(cnt_t, cnt_j)
+    _assert_probs_and_labels(pt, sum_t / cnt_t[..., None], pj, sum_j / cnt_j[..., None])
+
+
+def test_uncapped_window_fold_collects_each_scale_whole(tiles96, monkeypatch):
+    cfg = _cfg(window_batch=32)
+    variables = _variables(cfg, tiles96)
+    (pt, sum_t, cnt_t), seen, peak = _window_run(cfg, tiles96, variables,
+                                                 monkeypatch, None)
+    assert peak == max(_scale_buffers(cfg, tiles96).values()) == max(seen)
+    (pb, sum_b, cnt_b), _, peak_b = _window_run(cfg, tiles96, variables,
+                                                monkeypatch, 6e-5)
+    assert peak_b < peak
+    np.testing.assert_array_equal(cnt_b, cnt_t)
+    _assert_probs_and_labels(pb, sum_b / cnt_b[..., None], pt, sum_t / cnt_t[..., None])

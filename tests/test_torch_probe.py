@@ -63,13 +63,46 @@ def test_ref_matches_jax_probe_bitwise(jax_probe, name):
         assert (got == -128).any() and (got == 127).any()
 
 
-def test_wrapper_on_cpu_takes_plain_version():
+@pytest.mark.parametrize("offset", [0, 1, 7, 15])
+def test_wrapper_on_cpu_takes_plain_version(offset):
+    """CPU tensors, at and off 16-byte alignment, take the plain version
+    and count no launch of either variant."""
     x, w = _inputs(CASES["b2_h16_c128_d2"], seed=3)
-    xt, wt = torch.from_numpy(x), torch.from_numpy(w)
-    before = int8_probe_conv.launches
+    buf = torch.zeros(x.size + 16, dtype=torch.int8)
+    shift = (offset - buf.data_ptr()) % 16
+    xt = buf[shift:shift + x.size].view(x.shape)
+    xt.copy_(torch.from_numpy(x))
+    assert xt.data_ptr() % 16 == offset
+    wt = torch.from_numpy(w)
+    before = int8_probe_conv.launches, dict(int8_probe_conv.variant_launches)
     got = int8_probe_conv.int8_conv3x3_requant(xt, wt, 1 / 512, 2)
-    assert torch.equal(got, int8_probe_conv.int8_conv3x3_requant_ref(xt, wt, 1 / 512, 2))
-    assert int8_probe_conv.launches == before
+    assert torch.equal(got, int8_probe_conv.int8_conv3x3_requant_ref(
+        torch.from_numpy(x), wt, 1 / 512, 2))
+    assert (int8_probe_conv.launches, int8_probe_conv.variant_launches) == before
+
+
+@pytest.mark.parametrize("offset", range(16))
+def test_variant_for_alignment(offset):
+    """The wgmma variant for a 16-byte-aligned input, the mma.sync
+    kernel for a view 1-15 bytes past alignment."""
+    want = "wgmma" if offset == 0 else "mma_sync"
+    assert int8_probe_conv.variant_for(6, aligned=offset % 16 == 0) == want
+
+
+@pytest.mark.parametrize("dilation,want", [(1, "wgmma"), (6, "wgmma"), (127, "wgmma"),
+                                           (128, "mma_sync"), (300, "mma_sync")])
+def test_variant_for_dilation(dilation, want):
+    """TMA's im2col corners reach a SAME pad (the dilation) under 128."""
+    assert int8_probe_conv.variant_for(dilation) == want
+    assert int8_probe_conv.variant_for(dilation, aligned=False) == "mma_sync"
+
+
+def test_reset_launches():
+    int8_probe_conv.launches = 3
+    int8_probe_conv.variant_launches["wgmma"] = 2
+    int8_probe_conv.reset_launches()
+    assert int8_probe_conv.launches == 0
+    assert int8_probe_conv.variant_launches == {"mma_sync": 0, "wgmma": 0}
 
 
 @pytest.mark.parametrize("c", [16, 48, 100])
@@ -80,13 +113,14 @@ def test_wrapper_refuses_channels_not_multiple_of_32(c):
         int8_probe_conv.int8_conv3x3_requant(x, w, 0.5, 1)
 
 
-def test_wrapper_raises_off_cpu_and_cuda():
+@pytest.mark.parametrize("variant", [None, "wgmma", "mma_sync"])
+def test_wrapper_raises_off_cpu_and_cuda(variant):
     x = torch.zeros((1, 4, 4, 32), dtype=torch.int8, device="meta")
     w = torch.zeros((3, 3, 32, 32), dtype=torch.int8, device="meta")
-    before = int8_probe_conv.launches
+    before = int8_probe_conv.launches, dict(int8_probe_conv.variant_launches)
     with pytest.raises(RuntimeError, match="no kernel"):
-        int8_probe_conv.int8_conv3x3_requant(x, w, 0.5, 1)
-    assert int8_probe_conv.launches == before
+        int8_probe_conv.int8_conv3x3_requant(x, w, 0.5, 1, variant)
+    assert (int8_probe_conv.launches, int8_probe_conv.variant_launches) == before
 
 
 def test_probe_refuses_to_run_without_a_card(monkeypatch, capsys):
