@@ -70,7 +70,41 @@ runs without them.
      --quant_exit (K5 launches = 3 x the int8 forwards), predict on two
      rasters with --predict_chunk 1, and info. Every exit code must be 0;
      each run's K2/K4/K5 launches (its "kernel launches:" line) are held
-     to the run; each run's output is in smoke_out/cli_<name>.log.
+     to the run; each run's output is in smoke_out/cli_<name>.log. Beside
+     int8 testing, testing --tta --compute_dtype bfloat16 in dense mode
+     prints its TOTAL line.
+
+ 12. K5's bfloat16 store (the int8 forward under compute_dtype bfloat16)
+     vs plain, bitwise, at the three geometries of phase 2 in both
+     variants, each timed with its share of the bound and its ratio to
+     the float32 store's time in the same run; then dp4a at a ragged
+     shape (the dense-wired net's 131-channel concat);
+ 13. the serving runs of phase 3 in float32 and under compute_dtype
+     bfloat16, with the head bias centred on the 2048^2 tile's median
+     log-odds (the random net otherwise paints one class everywhere, and
+     every label agreement would be 1): Mpx/s side by side and label
+     agreement; K5 launches = 3 per int8 forward, one of them (block 5)
+     storing bf16;
+ 14. test-time augmentation, with phase 13's weights: validate_test with
+     tta on in dense int8 (the 2048^2 tile) and window float on a 512^2
+     tile (a smaller tile keeps 8x the window work inside the time
+     limit): forwards = 8 x the plain run's, label agreement with the
+     plain run;
+ 15. host streaming, with phase 13's weights: window float on phase 3's
+     tile with hbm_budget_gb=0
+     (the tile set stays on the host, one tile uploaded a prediction):
+     label maps bitwise equal to the resident run, device peak memory and
+     Mpx/s of both;
+ 16. training under compute_dtype bfloat16: one width-0.25 step on the
+     card and on the CPU (a bfloat16 bound), then `run_training` at
+     phase 7's configuration with pool_backward="xla" (TRAIN_STEPS steps,
+     EMA + recalibration) and a short run with "pallas", which must warn
+     that the bfloat16 pools take ATen's backward: ms/step and patches/s
+     per scale beside phase 7's, loss finite and falling, K2 launches =
+     gathers, no K4 launch.
+
+Phases 12-15 run after phase 4 and phase 16 after phase 8, each beside
+the float32 phase it is compared with.
 
 With --profile DIR, it also traces one warm call of each serving run and
 one warm train step per pool backward with torch.profiler, and writes the
@@ -88,6 +122,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import dataclasses
 import importlib.abc
 import json
 import math
@@ -96,6 +131,7 @@ import shutil
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -158,6 +194,8 @@ PR4_K2_DEVICE_MS = {25: 0.0073, 35: 0.0091, 45: 0.0142, 55: 0.0196, 65: 0.0249}
 POOL_CHANNELS = (64, 64, 128, 128, 256, 256)
 # The command line: iterations of the first training run and of the resume.
 CLI_NITER, CLI_RESUME_NITER, CLI_EVERY = 40, 60, 20
+# Phase 14's window-mode tile, and phase 16's short pallas run.
+TTA_TILE, BF16_PALLAS_STEPS = 512, 5
 
 
 def log(msg: str) -> None:
@@ -295,15 +333,30 @@ def seeded_weights(cfg, bands: int) -> dict:
     return flax_to_torch(variables)
 
 
-def config(mode: str, quant: str, scales=SCALES):
+def config(mode: str, quant: str, scales=SCALES, dtype: str = "float32", **infer_kw):
     from dynseg_torch.config import Config, InferConfig, ModelConfig
 
     return Config(
         model=ModelConfig(net_type="dilated_icpr_rate6", num_classes=2,
-                          num_input_bands=3, width_multiplier=1.0),
+                          num_input_bands=3, width_multiplier=1.0,
+                          compute_dtype=dtype),
         infer=InferConfig(scales=scales, mode=mode, quant=quant,
                           dense_block=256, dense_halo=40,
-                          save_prediction_maps=False))
+                          save_prediction_maps=False, **infer_kw))
+
+
+def with_dtype(cfg, dtype: str = "bfloat16"):
+    return dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, compute_dtype=dtype))
+
+
+def mpx_s(tiles, scores) -> float:
+    return float(np.prod(tiles.valid_hw, axis=1).sum()) / scores["infer_wall_s"] / 1e6
+
+
+def agreement(a: dict, b: dict) -> float:
+    """Share of equal labels over the tiles of two validate_test runs."""
+    return float(np.mean([np.mean(x == y) for x, y in
+                          zip(a["predictions"], b["predictions"], strict=True)]))
 
 
 def expected_forwards(cfg, tiles) -> int:
@@ -621,30 +674,32 @@ def check_pool_kernel(pool) -> dict:
 
 
 def train_config(pool_backward: str, niter: int, ema: bool, width: float = 1.0,
-                 scales=SCALES, batch: int = TRAIN_BATCH):
+                 scales=SCALES, batch: int = TRAIN_BATCH, dtype: str = "float32"):
     from dynseg_torch.config import (Config, DataConfig, InferConfig,
                                      ModelConfig, SchedulerConfig, TrainConfig)
 
     return Config(
         model=ModelConfig(net_type="dilated_icpr_rate6", num_classes=2,
                           num_input_bands=3, width_multiplier=width,
-                          pool_backward=pool_backward),
+                          pool_backward=pool_backward, compute_dtype=dtype),
         sched=SchedulerConfig(distribution_type="multinomial", values=scales),
         train=TrainConfig(batch_size=batch, niter=niter, eval_every=EVAL_EVERY,
                           ema_decay=0.9 if ema else 0.0,
                           ema_recalib_batches=RECALIB if ema else 0,
-                          output_path=f"{OUT_DIR}/smoke_train_{pool_backward}"),
+                          output_path=f"{OUT_DIR}/smoke_train_{pool_backward}_{dtype}"),
         infer=InferConfig(scales=scales, save_prediction_maps=False),
         data=DataConfig(dataset="synthetic", dataset_kwargs=json.dumps(
             {"size": TRAIN_TILE, "num_tiles": 4})))
 
 
-def check_train_step_against_cpu() -> None:
-    """Phase 6: one train step on the card and on the CPU."""
+def check_train_step_against_cpu(dtype: str = "float32") -> None:
+    """Phase 6 (float32) and 16 (bfloat16): one train step on the card and
+    on the CPU."""
     from dynseg_torch.data.datasets import load_synthetic
     from dynseg_torch.train import Trainer
 
-    cfg = train_config("pallas", 1, False, width=0.25, scales=(25,), batch=8)
+    pb = "pallas" if dtype == "float32" else "xla"
+    cfg = train_config(pb, 1, False, width=0.25, scales=(25,), batch=8, dtype=dtype)
     tiles = load_synthetic(seed=0, num_tiles=2, size=64)[0]
     out = {}
     for dev in (DEVICE, "cpu"):
@@ -656,11 +711,14 @@ def check_train_step_against_cpu() -> None:
     (lg, sg), (lc, sc) = out[DEVICE], out["cpu"]
     dp = max(float((sg[k].double() - sc[k].double()).abs().max()) for k in sc)
     rel = abs(lg - lc) / abs(lc)
-    log(f"train step width 0.25, 8 x 25^2, pool_backward pallas: card vs CPU "
+    log(f"train step width 0.25, 8 x 25^2, {dtype}, pool_backward {pb}: card vs CPU "
         f"loss {lg:.7f} vs {lc:.7f} (rel {rel:.2e}), max|dparam| {dp:.2e}")
-    # Both float32 (TF32 off); sums in another order: 1e-5 / 1e-6.
-    if not (math.isfinite(lg) and rel <= 1e-5 and dp <= 1e-6):
-        raise SystemExit("train step: card and CPU disagree")
+    # float32 (TF32 off): sums in another order, 1e-5 / 1e-6. bfloat16:
+    # cuDNN's and the CPU's bf16 convs round their sums apart, the bounds
+    # of tests/test_torch_train.py's bfloat16 step: 1e-2 / 5e-3.
+    loss_tol, param_tol = (1e-5, 1e-6) if dtype == "float32" else (1e-2, 5e-3)
+    if not (math.isfinite(lg) and rel <= loss_tol and dp <= param_tol):
+        raise SystemExit(f"train step {dtype}: card and CPU disagree")
 
 
 def run_training_slice(gather, pool, card: str) -> dict:
@@ -969,7 +1027,10 @@ def run_cli(card: str) -> dict:
     jobs = [start("testing_int8", int8_argv),
             start("predict", ["--operation", "predict", "--predict_path", rasters,
                               "--predict_chunk", "1"]),
-            start("info", ["--operation", "info"])]
+            start("info", ["--operation", "info"]),
+            start("testing_tta_bf16", ["--operation", "testing", "--tta", "--compute_dtype",
+                                       "bfloat16", "--inference_mode", "dense",
+                                       "--no_prediction_maps"])]
     try:
         ends = {}
         deadline = time.perf_counter() + 600
@@ -996,12 +1057,290 @@ def run_cli(card: str) -> dict:
         if f"iteration: {CLI_RESUME_NITER}" not in lines:
             raise SystemExit("CLI info: wrong iteration")
         log("  " + next(m for m in lines if m.startswith("checkpoints:")))
+
+        lines = finish(jobs[3], " (beside int8 testing, predict and info)",
+                       ends.get("testing_tta_bf16"))
+        total(lines, "testing_tta_bf16")
+        expect("testing_tta_bf16", lines, int8_block_conv=0, patch_gather=0, pool_bwd=0)
     finally:
         for _, _, proc, _ in jobs:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
     return {"walls": walls, "k5": k5, "differ": differ}
+
+
+def check_k5_bf16_out(int8_conv) -> dict:
+    """Phase 12: K5 with the bfloat16 store vs plain, bitwise, at phase 2's
+    geometries in both variants, each timed beside the float32 store of
+    the same launch shape; then dp4a at a ragged shape."""
+    rng = np.random.default_rng(12)
+    dev = torch.device(DEVICE)
+    bsz, ext = DENSE_BATCH, DENSE_EXT
+    total, bounds = collections.Counter(), collections.Counter()
+    for name, cin, cout, k, dil, _ in GEOMETRIES:
+        x = np.clip(np.rint(rng.normal(10, 38, (bsz, ext, ext, cin))), -127, 127)
+        w = np.clip(np.rint(rng.normal(0, 35, (k, k, cin, cout))), -127, 127)
+        a = rng.uniform(0.5, 1.5, cout) / (math.sqrt(k * k * cin) * 38 * 35)
+        b = rng.normal(0, 0.1, cout)
+        xq = torch.from_numpy(x.astype(np.int8)).to(dev)
+        operands = (torch.from_numpy(w.astype(np.int8)).to(dev),
+                    torch.from_numpy(a.astype(np.float32)).to(dev),
+                    torch.from_numpy(b.astype(np.float32)).to(dev))
+        pcs = {dt: int8_conv.pack_conv(*operands, dilation=dil, leaky_slope=0.1,
+                                       out_dtype=dt) for dt in (torch.float32, torch.bfloat16)}
+        want = int8_conv.int8_block_conv_packed_ref(xq, pcs[torch.bfloat16])
+        if not torch.equal(want, int8_conv.int8_block_conv_packed_ref(
+                xq, pcs[torch.float32]).to(torch.bfloat16)):
+            raise SystemExit(f"K5 {name}: plain bf16 store is not the f32 value rounded once")
+        macs = bsz * ext * ext * k * k * cin * cout
+        bound, bound_by = bound_ms(2.0 * macs, xq.numel() + operands[0].numel()
+                                   + 2 * want.numel() + 8 * cout, INT8_PEAK)
+        times = {}
+        for variant, reps in (("wgmma", 20), ("dp4a", 5)):
+            got = int8_conv.int8_block_conv_packed(xq, pcs[torch.bfloat16], variant)
+            torch.cuda.synchronize()
+            if got.dtype != torch.bfloat16 or not torch.equal(got, want):
+                raise SystemExit(f"K5 {name} {variant} bf16 out: kernel disagrees with plain")
+            del got
+            for dt in (torch.bfloat16, torch.float32):
+                times[variant, dt] = time_ms(
+                    lambda: int8_conv.int8_block_conv_packed(xq, pcs[dt], variant), reps)
+        log(f"K5 bf16 out {name} {cin}->{cout} k{k} d{dil} x({bsz},{ext},{ext},{cin}): "
+            f"every variant == plain bitwise (max|y| {want.abs().max().item():.3g}); "
+            f"bound {bound:.4f} ms ({bound_by})")
+        for variant in ("wgmma", "dp4a"):
+            bf, f32 = times[variant, torch.bfloat16], times[variant, torch.float32]
+            log(f"    {variant:8s}: bf16 out {bf:.4f} ms, {bound / bf:.3f} of the bound; "
+                f"f32 out {f32:.4f} ms; bf16 / f32 time {bf / f32:.3f}")
+        total.update(ms=times["wgmma", torch.bfloat16])
+        bounds[bound_by] += bound
+        del xq, operands, pcs, want
+    # The dense-wired net's block 3 input: 131 channels, dp4a only.
+    x = torch.randint(-127, 128, (2, 48, 40, 131), dtype=torch.int8, device=dev)
+    w = torch.randint(-127, 128, (4, 4, 131, 128), dtype=torch.int8, device=dev)
+    a = torch.full((128,), 2e-6, device=dev)
+    pc = int8_conv.pack_conv(w, a, torch.zeros_like(a), dilation=3, leaky_slope=0.1,
+                             out_dtype=torch.bfloat16)
+    got = int8_conv.int8_block_conv_packed(x, pc)
+    same = pc.variant == "dp4a" and torch.equal(got, int8_conv.int8_block_conv_packed_ref(x, pc))
+    log(f"K5 bf16 out ragged x(2,48,40,131) 131->128 k4 d3 ({pc.variant}): "
+        f"kernel == plain bitwise: {same}")
+    if not same:
+        raise SystemExit("K5 bf16 out: dp4a disagrees with plain at the ragged shape")
+    torch.cuda.empty_cache()
+    return {"bf16_out_ms": total["ms"], "bf16_out_bound_ms": sum(bounds.values())}
+
+
+def centred_weights(weights, mode: str, tiles) -> dict:
+    """`weights` with the head's class-1 bias moved by the median log-odds
+    of a float32 prediction of tile 0 in `mode`, so that the random net
+    splits the tile between the two classes."""
+    from dynseg_torch.infer import Inferencer
+
+    inf = Inferencer(config(mode, "none"), tiles, device=DEVICE)
+    _, prob = (inf.predict_tile_dense(weights, 0, 256, 40) if mode == "dense"
+               else inf.predict_tile(weights, 0))
+    odds = np.log(np.maximum(prob[..., 1], 1e-30)) - np.log(np.maximum(prob[..., 0], 1e-30))
+    bias = weights["head.conv.bias"].clone()
+    bias[1] -= float(np.median(odds))
+    return {**weights, "head.conv.bias": bias}
+
+
+def run_bf16_serving(weights, int8_conv, f32_runs, card):
+    """Phase 13: phase 3's three validate_test runs with weights centred
+    per mode, in float32, then under compute_dtype bfloat16 (K5 launches
+    counted); returns the weights by mode, the float32 scores and K5's
+    bf16-out launches."""
+    from dynseg_torch.infer import validate_test
+
+    centred = {mode: centred_weights(weights, mode, tiles)
+               for mode, tiles in (("window", f32_runs[0][2]), ("dense", f32_runs[2][2]))}
+    f32 = {}
+    for name, cfg, tiles in f32_runs:
+        f32[name] = validate_test(cfg, centred[cfg.infer.mode], tiles, DEVICE,
+                                  log=lambda *_: None)
+        share = float(np.mean(f32[name]["predictions"][0]))
+        if not 0.05 < share < 0.95:
+            raise SystemExit(f"{name}: the centred net still paints one class ({share})")
+    int8_conv.reset_launches()
+    int8_forwards = 0
+    for name, cfg, tiles in f32_runs:
+        cfg = with_dtype(cfg)
+        t0 = time.perf_counter()
+        scores = validate_test(cfg, centred[cfg.infer.mode], tiles, DEVICE,
+                               log=lambda *_: None)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        ref = f32[name]
+        agree = agreement(scores, ref)
+        pred = scores["predictions"][0]
+        if cfg.infer.quant == "int8":
+            int8_forwards += expected_forwards(cfg, tiles)
+        log(f"{name} bf16: OA={scores['oa']:.4f} (f32 {ref['oa']:.4f}) "
+            f"{mpx_s(tiles, scores):.3f} Mpx/s (f32 {mpx_s(tiles, ref):.3f}), call wall "
+            f"{wall:.3f} s, class-1 share {pred.mean():.3f} (f32 "
+            f"{ref['predictions'][0].mean():.3f}), label agreement with f32 {agree:.6f} [{card}]")
+        if pred.shape != tuple(tiles.valid_hw[0]) or not 0 <= pred.min() <= pred.max() < 2:
+            raise SystemExit(f"{name} bf16: malformed prediction map")
+        # bfloat16 moves a label only near a tie (tests/test_torch_infer.py
+        # bounds it at the reference); far fewer agreeing means a fault.
+        if agree < 0.9:
+            raise SystemExit(f"{name} bf16: labels far from the float32 run's")
+    launches, out = int8_conv.launches, dict(int8_conv.out_launches)
+    log(f"K5 launches on the bf16 serving runs: {launches} (3 x {int8_forwards} int8 "
+        f"forwards), by output {out}, by variant {int8_conv.variant_launches}")
+    if launches != 3 * int8_forwards or out != {"float32": 0, "int8": 2 * int8_forwards,
+                                                "bfloat16": int8_forwards}:
+        raise SystemExit("bf16 serving: K5 launches do not match the int8 forwards")
+    if int8_conv.variant_launches["wgmma"] != launches:
+        raise SystemExit("bf16 serving: a K5 launch did not take the wgmma variant")
+    return centred, f32, out["bfloat16"]
+
+
+def run_tta(centred, int8_conv, dense_run, dense_scores, card) -> None:
+    """Phase 14: validate_test with tta on, in dense int8 on phase 3's
+    2048^2 tile and in window float on a 512^2 tile, each beside the
+    plain run: forwards counted at the net's apply."""
+    from dynseg_torch import infer
+    from dynseg_torch.data.datasets import load_synthetic
+
+    small = load_synthetic(seed=3, num_tiles=2, size=TTA_TILE)[1]
+    forwards = [0]
+    probs = infer.Inferencer._probs
+
+    def counted(self, *args, **kwargs):
+        forwards[0] += 1
+        return probs(self, *args, **kwargs)
+
+    name, dcfg, dense_tiles = dense_run
+    cases = (("window float", config("window", "none"), small, None,
+              " (512^2 keeps 8x the window work inside the time limit)"),
+             (name, dcfg, dense_tiles, dense_scores, ""))
+    infer.Inferencer._probs = counted
+    try:
+        for name, cfg, tiles, plain, note in cases:
+            weights = centred[cfg.infer.mode]
+            if plain is None:
+                forwards[0] = 0
+                plain = infer.validate_test(cfg, weights, tiles, DEVICE, log=lambda *_: None)
+                n_plain = forwards[0]
+            else:
+                n_plain = expected_forwards(cfg, tiles)
+            int8_conv.reset_launches()
+            forwards[0] = 0
+            tcfg = dataclasses.replace(cfg, infer=dataclasses.replace(cfg.infer, tta=True))
+            t0 = time.perf_counter()
+            scores = infer.validate_test(tcfg, weights, tiles, DEVICE, log=lambda *_: None)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            n_tta, k5 = forwards[0], int8_conv.launches
+            side = tiles.valid_hw[0]
+            log(f"TTA {name} on a {side[0]}x{side[1]} tile{note}: {n_tta} forwards (plain {n_plain}, 8x = {8 * n_plain}), OA={scores['oa']:.4f} "
+                f"(plain {plain['oa']:.4f}), label agreement with plain {agreement(scores, plain):.6f}, "
+                f"{mpx_s(tiles, scores):.3f} Mpx/s (plain {mpx_s(tiles, plain):.3f}), call wall "
+                f"{wall:.3f} s, K5 launches {k5} [{card}]")
+            pred = scores["predictions"][0]
+            if pred.shape != tuple(side) or not 0 <= pred.min() <= pred.max() < 2:
+                raise SystemExit(f"TTA {name}: malformed prediction map")
+            if n_tta != 8 * n_plain or k5 != (3 * n_tta if cfg.infer.quant == "int8" else 0):
+                raise SystemExit(f"TTA {name}: forwards or K5 launches do not match 8 x plain")
+    finally:
+        infer.Inferencer._probs = probs
+
+
+def check_streaming(weights, window_run, card) -> None:
+    """Phase 15: window float with hbm_budget_gb=0 (tiles on the host, one
+    uploaded a prediction) beside the resident run: label maps bitwise,
+    device peak memory and Mpx/s of each."""
+    from dynseg_torch.infer import Inferencer, validate_test
+
+    _, cfg, tiles = window_run
+    out = {}
+    for label, budget in (("resident", cfg.infer.hbm_budget_gb), ("streamed", 0.0)):
+        c = dataclasses.replace(cfg, infer=dataclasses.replace(cfg.infer, hbm_budget_gb=budget))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        scores = validate_test(c, weights, tiles, DEVICE, log=lambda *_: None)
+        torch.cuda.synchronize()
+        out[label] = (scores, torch.cuda.max_memory_allocated() - base)
+        held = Inferencer(c, tiles, device=DEVICE).images
+        log(f"window float {label} (hbm_budget_gb={budget}, tiles held as "
+            f"{type(held).__module__}.{type(held).__name__}): {mpx_s(tiles, scores):.3f} Mpx/s, "
+            f"device peak memory over the weights {out[label][1]} bytes [{card}]")
+        if (budget == 0.0) != isinstance(held, np.ndarray):
+            raise SystemExit(f"streaming: the {label} run held its tiles in the wrong place")
+        del held
+    same = all(np.array_equal(a, b) for a, b in zip(
+        out["resident"][0]["predictions"], out["streamed"][0]["predictions"], strict=True))
+    log(f"    streamed label maps == resident bitwise: {same}")
+    if not same:
+        raise SystemExit("streaming: label maps differ from the resident run's")
+
+
+def run_bf16_training(gather, pool, f32_runs, card) -> None:
+    """Phase 16: run_training under compute_dtype bfloat16 with
+    pool_backward xla (TRAIN_STEPS steps, EMA + recalibration), then a
+    short pallas run, which must warn; beside phase 7's float32 steps."""
+    from dynseg_torch import cli, train
+
+    losses = []
+    step = train.Trainer.train_step
+
+    def recording_step(self, state, size):
+        state, m = step(self, state, size)
+        losses.append(m["loss"])
+        return state, m
+
+    train.Trainer.train_step = recording_step
+    steps = {}
+    try:
+        for pb, niter, ema in (("xla", TRAIN_STEPS, True), ("pallas", BF16_PALLAS_STEPS, False)):
+            cfg = train_config(pb, niter, ema, dtype="bfloat16")
+            losses.clear()
+            gather.launches = 0
+            pool.reset_launches()
+            pool._warned.clear()
+            t0 = time.perf_counter()
+            with warnings.catch_warnings(record=True) as rec:
+                warnings.simplefilter("always")
+                scores = cli.run_training(cfg, log=lambda *_: None, device=DEVICE)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            warned = sorted({str(r.message) for r in rec if "falling back to ATen" in str(r.message)})
+            vals = [float(x) for x in losses]
+            n_scales = len(cfg.sched.values)
+            gathers = n_scales + niter + niter // EVAL_EVERY + (RECALIB if ema else 0)
+            third = max(1, len(vals) // 3)
+            head, tail = np.mean(vals[:third]), np.mean(vals[-third:])
+            log(f"run_training bf16 pool_backward={pb}: {niter} steps + {n_scales} warm-up, "
+                f"wall {wall:.1f} s, mean loss of the first {third} steps {head:.4f}, of the "
+                f"last {third} {tail:.4f}, OA={scores['oa']:.4f}; K2 launches "
+                f"{gather.launches} (expected {gathers}), K4 launches {pool.launches}, "
+                f"{len(warned)} pool fallback warnings [{card}]")
+            for msg in warned[:1]:
+                log(f"    warned: {msg}")
+            if not all(map(math.isfinite, vals)) or len(vals) != niter:
+                raise SystemExit(f"bf16 {pb}: non-finite or missing losses {vals}")
+            if niter == TRAIN_STEPS and not tail < head:
+                raise SystemExit(f"bf16 {pb}: loss did not fall ({head} -> {tail})")
+            if gather.launches != gathers or pool.launches != 0:
+                raise SystemExit(f"bf16 {pb}: launch counts do not match the run")
+            if (pb == "pallas") != bool(warned):
+                raise SystemExit(f"bf16 {pb}: the pool fallback warning is wrong ({warned})")
+            if not 0.0 <= scores["oa"] <= 1.0 or len(scores["predictions"]) != 2:
+                raise SystemExit(f"bf16 {pb}: malformed scores")
+            steps[pb] = scores["train_steps"]
+    finally:
+        train.Trainer.train_step = step
+    log("ms/step and patches/s by scale, bf16 (xla) beside phase 7's float32 (pallas, xla):")
+    for size, st in sorted(steps["xla"].items()):
+        f32 = {pb: f32_runs[pb]["steps"].get(size) for pb in ("pallas", "xla")}
+        cols = ", ".join(f"f32 {pb} {v['ms_per_step']:.3f} ms {v['patches_per_s']:.1f}/s"
+                         if v else f"f32 {pb} not run" for pb, v in f32.items())
+        log(f"  scale {size}: bf16 {st['ms_per_step']:.3f} ms ({st['steps']} steps) "
+            f"{st['patches_per_s']:.1f}/s; {cols}")
 
 
 def kernel_class(event: dict) -> str:
@@ -1054,7 +1393,8 @@ def profile_serving(out_dir: str, weights, runs) -> None:
 
 def profile_train_steps(out_dir: str) -> None:
     """--profile: torch.profiler over one warm full-width train step per
-    pool backward at 25 and 65 px; chrome traces and kernel sums."""
+    pool backward in float32, and with ATen's in bfloat16, at 25 and 65
+    px; chrome traces and kernel sums."""
     from torch.profiler import ProfilerActivity, profile
 
     from dynseg_torch import train
@@ -1062,8 +1402,8 @@ def profile_train_steps(out_dir: str) -> None:
 
     os.makedirs(out_dir, exist_ok=True)
     tiles = load_synthetic(seed=0, num_tiles=4, size=TRAIN_TILE)[0]
-    for pb in ("pallas", "xla"):
-        tr = train.Trainer(train_config(pb, 1, False), tiles, device=DEVICE)
+    for pb, dtype in (("pallas", "float32"), ("xla", "float32"), ("xla", "bfloat16")):
+        tr = train.Trainer(train_config(pb, 1, False, dtype=dtype), tiles, device=DEVICE)
         st = tr.init_state(seed=0)
         for s in (25, 65):
             for _ in range(3):  # warm
@@ -1074,7 +1414,7 @@ def profile_train_steps(out_dir: str) -> None:
                 tr.train_step(st, s)
                 torch.cuda.synchronize()
                 span = time.perf_counter() - t0
-            trace = os.path.join(out_dir, f"train_step_{pb}_{s}.json")
+            trace = os.path.join(out_dir, f"train_step_{pb}_{dtype}_{s}.json")
             prof.export_chrome_trace(trace)
             with open(trace) as f:
                 events = json.load(f)["traceEvents"]
@@ -1086,7 +1426,7 @@ def profile_train_steps(out_dir: str) -> None:
             copies = [e for e in kernels if any(
                 k in e["name"].lower() for k in ("copy", "transpose", "nchwtonhwc",
                                                  "nhwctonchw"))]
-            log(f"profile pool_backward={pb} s={s}: span {span * 1e3:.3f} ms, "
+            log(f"profile {dtype} pool_backward={pb} s={s}: span {span * 1e3:.3f} ms, "
                 f"kernels busy {busy * 1e3:.3f} ms, idle share {1 - busy / span:.3f}; "
                 f"copy/transpose kernels {len(copies)}, "
                 f"{sum(e['dur'] for e in copies) / 1e3:.3f} ms")
@@ -1125,21 +1465,31 @@ def main() -> int:
                seeded_weights(config("window", "none").model, 3).items()}
     check_against_cpu(weights)
     k5.update(run_slice(weights, int8_conv, card))
-    check_capped_fold(weights, k5["runs"][0][2], k5.pop("scores")["window float"], card)
+    f32_runs, f32_scores = k5.pop("runs"), k5.pop("scores")
+    check_capped_fold(weights, f32_runs[0][2], f32_scores["window float"], card)
     check_real_activations(weights, int8_conv)
     if args.profile:
-        profile_serving(args.profile, weights, k5.pop("runs"))
-    k5.pop("runs", None)
-    del weights
+        profile_serving(args.profile, weights, f32_runs)
     torch.cuda.empty_cache()
 
-    # The training path (K2, K4).
+    # This slice: bfloat16 serving with K5's bf16 store, TTA, streaming.
+    k5.update(check_k5_bf16_out(int8_conv))
+    centred, centred_scores, k5["bf16_out_launches"] = run_bf16_serving(
+        weights, int8_conv, f32_runs, card)
+    run_tta(centred, int8_conv, f32_runs[2], centred_scores["dense int8"], card)
+    check_streaming(centred["window"], f32_runs[0], card)
+    del weights, centred, f32_runs, f32_scores, centred_scores
+    torch.cuda.empty_cache()
+
+    # The training path (K2, K4), float32 then bfloat16.
     k2 = check_gather_kernel(gather)
     k4 = check_pool_kernel(pool)
     check_train_step_against_cpu()
     runs = run_training_slice(gather, pool, card)
     k2["launches"], k4["launches"] = runs["pallas"]["k2"], runs["pallas"]["k4"]
     check_train_real_activations(gather, pool)
+    check_train_step_against_cpu("bfloat16")
+    run_bf16_training(gather, pool, runs, card)
     if args.profile:
         profile_train_steps(args.profile)
 
@@ -1152,11 +1502,14 @@ def main() -> int:
         # library_ms: no single PyTorch call computes any of the four
         # functions (no CUDA int8 conv; ATen's max-pool backward routes a
         # tie to the first max; the gather fuses crop, normalise and labels).
+        # K5 adds its bf16 store's time, bound and launches (phases 12-13).
+        extra = {key: k[key] for key in ("bf16_out_ms", "bf16_out_bound_ms",
+                                         "bf16_out_launches") if key in k}
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": k["launches"],
                 "max_abs_err": k["max_abs_err"], "ms": k["ms"],
                 "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-                "bound_by": k["bound_by"], "library_ms": None}
+                "bound_by": k["bound_by"], "library_ms": None, **extra}
 
     print(json.dumps({"kernels": [
         entry("int8_block_conv", KERNEL_SOURCE, KERNEL_REPLACES, k5),

@@ -18,12 +18,17 @@ is visible the run stops with a message instead of falling back to the CPU.
     --predict_chunk) from the checkpoint and its stats sidecar alone;
   * info: the checkpoint's model card; check_data: the dataset pre-flight.
 
-Not ported, and refused with a message: --operation export|serve, --tta,
---compute_dtype bfloat16, --num_devices > 1, --shard_tiles. Knobs of the
-reference's XLA programs that change no result have no effect here:
---scan_chunk, --dense_scan_chunk, --quant_conv (the int8 blocks always run
-K5), --hbm_budget_gb (the tiles stay on the device). --window_fold off is
-accepted: the port's one window accumulator gives the legacy counts.
+--tta fuses the 8 dihedral transforms of each tile in either mode;
+--compute_dtype bfloat16 runs the nets' activations in bfloat16 for
+training, testing and predict, float or int8; --hbm_budget_gb (GiB) keeps
+a larger test set on the host and uploads one tile a prediction.
+
+Not ported, and refused with a message: --operation export|serve,
+--num_devices > 1, --shard_tiles. Knobs of the reference's XLA programs
+that change no result have no effect here: --scan_chunk,
+--dense_scan_chunk, --quant_conv (the int8 blocks always run K5).
+--window_fold off is accepted: the port's one window accumulator gives
+the legacy counts.
 
 `dynseg/cli.py` imports jax at the top, so its jax-free helpers are
 copies here, each held equal to its original by the tests.
@@ -129,8 +134,8 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="batch-norm inside each conv block")
     p.add_argument("--compute_dtype", default=None,
                    choices=["float32", "bfloat16"],
-                   help="activation compute dtype; the port runs float32 "
-                        "only (bfloat16 is refused)")
+                   help="activation compute dtype (params stay float32); "
+                        "default float32, bfloat16 for export")
     p.add_argument("--pool_backward", default="xla", choices=["xla", "pallas"],
                    help="stride-1 max-pool backward: autograd's (xla) or "
                         "the tie-split kernel K4 (pallas)")
@@ -211,13 +216,15 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--dense_scan_chunk", type=int, default=4,
                    help="no effect in the port")
     p.add_argument("--hbm_budget_gb", type=float, default=10.0,
-                   help="no effect in the port: the test tiles stay on "
-                        "the device")
+                   help="device budget (GiB) for the packed test tiles; "
+                        "past it they stay on the host and each prediction "
+                        "uploads one tile")
     p.add_argument("--eval_eroded_boundaries", type=int, default=0,
                    help="also report metrics with class boundaries eroded "
                         "by this radius")
     p.add_argument("--tta", action="store_true",
-                   help="test-time dihedral augmentation (not ported)")
+                   help="test-time augmentation: average the softmax maps "
+                        "of the 8 dihedral transforms (8x the compute)")
     p.add_argument("--quant", default="none", choices=["none", "int8"],
                    help="post-training int8 serving path at testing/predict")
     p.add_argument("--quant_min_ch", type=int, default=128,
@@ -945,10 +952,6 @@ def _refuse_unported(args: argparse.Namespace) -> None:
     if args.operation in ("export", "serve"):
         missing.append(f"--operation {args.operation} (the StableHLO export "
                        f"and the HTTP server)")
-    if args.tta:
-        missing.append("--tta (test-time augmentation)")
-    if args.compute_dtype == "bfloat16":
-        missing.append("--compute_dtype bfloat16 (the port computes in float32)")
     if args.num_devices > 1 or args.shard_tiles:
         missing.append("--num_devices > 1 / --shard_tiles (data parallelism; "
                        "the port runs on one device)")
@@ -979,8 +982,9 @@ def _launch_counts() -> str:
     versions run)."""
     from dynseg_torch.ops import gather, int8_conv, pool
 
-    variants = " ".join(f"int8_block_conv.{v}={n}"
-                        for v, n in int8_conv.variant_launches.items())
+    variants = " ".join(f"int8_block_conv.{v}={n}" for v, n in [
+        *int8_conv.variant_launches.items(),
+        *((f"out_{d}", n) for d, n in int8_conv.out_launches.items())])
     pools = " ".join(f"pool_bwd.{v}={n}" for v, n in pool.variant_launches.items())
     return (f"kernel launches: int8_block_conv={int8_conv.launches} {variants} "
             f"patch_gather={gather.launches} pool_bwd={pool.launches} {pools}")

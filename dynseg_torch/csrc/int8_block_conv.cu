@@ -6,8 +6,10 @@
 // int8 NHWC activations with int8 weights, accumulated exactly in int32,
 // then the block's whole epilogue before the one store:
 //   y = A*acc + B  (dequant sx*sw_c folded with BN or the conv bias),
-//   leaky-ReLU, and, for the streamed-int8 chain, the requant
-//   q = int8(rint(clip(y * (1/out_scale), -127, 127))).
+//   leaky-ReLU, then one of three stores: for the streamed-int8 chain the
+//   requant q = int8(rint(clip(y * (1/out_scale), -127, 127))); else y as
+//   float32, or y rounded once to bfloat16 (round to nearest even, the
+//   reference's `y.astype(o_ref.dtype)` under compute_dtype bfloat16).
 //
 // Formulation: an implicit GEMM, M = B*H*W output pixels, N = Cout,
 // K = k*k*Cin. Both operands are K-major: A's row is a pixel of the NHWC
@@ -44,10 +46,13 @@
 //
 // Exactness: the accumulation is exact in every variant; the epilogue uses
 // __fmul_rn and __fadd_rn so that no multiply-add is contracted into an
-// FMA, and rintf (round half to even, as jnp.round and torch.round) for the
-// requant, so the output equals the plain PyTorch version bit for bit.
+// FMA, rintf (round half to even, as jnp.round and torch.round) for the
+// requant and __float2bfloat16_rn (nearest even, as torch's float-to-bf16
+// cast) for the bf16 store, so the output equals the plain PyTorch version
+// bit for bit.
 
 #include <cstdint>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "tma.cuh"  // stage barriers, TMA copies, descriptors, tensor maps
@@ -64,6 +69,9 @@ __device__ __forceinline__ signed char requant(float y, float inv_scale) {
   const float t = fminf(fmaxf(__fmul_rn(y, inv_scale), -127.0f), 127.0f);
   return static_cast<signed char>(static_cast<int>(rintf(t)));
 }
+
+// The output's type: the C entry's `store` argument.
+enum Store { kF32 = 0, kS8 = 1, kBF16 = 2 };
 
 // ---------------------------------------------------------------------------
 // wgmma variant.
@@ -82,6 +90,7 @@ constexpr int BAR_OFFSET = STAGES * STAGE_BYTES;   // one barrier a stage
 constexpr int SMEM_BYTES = BAR_OFFSET + 8 * STAGES + 1024;  // + alignment
 constexpr int LDC_F32 = BN + 8;             // staged f32 row, floats
 constexpr int LDC_S8 = BN + 16;             // staged int8 row, bytes
+constexpr int LDC_BF16 = BN + 8;            // staged bf16 row, values
 
 // Keeps the compiler from moving accumulator reads or writes across the
 // asynchronous products.
@@ -142,7 +151,7 @@ __device__ __forceinline__ void tma_load_a(uint32_t dst, const CUtensorMap* map,
   tma::load_im2col_4d(dst, map, c, w, h, n, dx, dy, bar);
 }
 
-template <bool REQUANT>
+template <int STORE>
 __global__ void __launch_bounds__(THREADS, 2)
 k5_wgmma_kernel(const __grid_constant__ CUtensorMap wmap,
                 const __grid_constant__ CUtensorMap xmap,
@@ -233,11 +242,14 @@ k5_wgmma_kernel(const __grid_constant__ CUtensorMap wmap,
       const int r = row0 + 8 * h;
       const float y0 = epilogue(acc[4 * j + 2 * h], a0, b0, leaky);
       const float y1 = epilogue(acc[4 * j + 2 * h + 1], a1, b1, leaky);
-      if (REQUANT) {
+      if (STORE == kS8) {
         char2 q;
         q.x = requant(y0, inv_scale);
         q.y = requant(y1, inv_scale);
         *reinterpret_cast<char2*>(smem + r * LDC_S8 + col) = q;
+      } else if (STORE == kBF16) {
+        *reinterpret_cast<__nv_bfloat162*>(smem + 2 * (r * LDC_BF16 + col)) =
+            __floats2bfloat162_rn(y0, y1);
       } else {
         *reinterpret_cast<float2*>(reinterpret_cast<float*>(smem) +
                                    r * LDC_F32 + col) = make_float2(y0, y1);
@@ -247,7 +259,7 @@ k5_wgmma_kernel(const __grid_constant__ CUtensorMap wmap,
   __syncthreads();
 
   // 16-byte stores; Cout % 16 == 0 keeps every piece inside or outside.
-  if (REQUANT) {
+  if (STORE == kS8) {
     int8_t* o = static_cast<int8_t*>(out);
 #pragma unroll
     for (int i = 0; i < BM * BN / 16 / THREADS; ++i) {
@@ -258,6 +270,19 @@ k5_wgmma_kernel(const __grid_constant__ CUtensorMap wmap,
       if (m < M && n0 + c < Cout) {
         *reinterpret_cast<int4*>(o + m * Cout + n0 + c) =
             *reinterpret_cast<const int4*>(smem + r * LDC_S8 + c);
+      }
+    }
+  } else if (STORE == kBF16) {
+    __nv_bfloat16* o = static_cast<__nv_bfloat16*>(out);
+#pragma unroll
+    for (int i = 0; i < BM * BN / 8 / THREADS; ++i) {
+      const int p = tid + THREADS * i;
+      const int r = p >> 4;
+      const int c = (p & 15) * 8;
+      const long long m = m0 + r;
+      if (m < M && n0 + c < Cout) {
+        *reinterpret_cast<int4*>(o + m * Cout + n0 + c) =
+            *reinterpret_cast<const int4*>(smem + 2 * (r * LDC_BF16 + c));
       }
     }
   } else {
@@ -312,7 +337,7 @@ __device__ __forceinline__ int4 load16(const int8_t* p, bool ok, int valid) {
 
 // ALIGNED: Cin % 16 == 0 and Cout % 4 == 0 (16-byte loads, 4-channel
 // stores); otherwise any Cin and Cout, with byte loads and single stores.
-template <bool REQUANT, bool ALIGNED>
+template <int STORE, bool ALIGNED>
 __global__ void __launch_bounds__(THREADS, 2)
 k5_dp4a_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
                const float* __restrict__ aff_a,
@@ -419,8 +444,10 @@ k5_dp4a_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
           if (n + j >= Cout) break;
           const float y = epilogue(acc[i][half * 4 + j], aff_a[n + j],
                                    aff_b[n + j], leaky);
-          if (REQUANT) {
+          if (STORE == kS8) {
             static_cast<int8_t*>(out)[o + j] = requant(y, inv_scale);
+          } else if (STORE == kBF16) {
+            static_cast<__nv_bfloat16*>(out)[o + j] = __float2bfloat16_rn(y);
           } else {
             static_cast<float*>(out)[o + j] = y;
           }
@@ -431,13 +458,18 @@ k5_dp4a_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
 #pragma unroll
       for (int j = 0; j < 4; ++j)
         y[j] = epilogue(acc[i][half * 4 + j], aff_a[n + j], aff_b[n + j], leaky);
-      if (REQUANT) {
+      if (STORE == kS8) {
         char4 q;
         q.x = requant(y[0], inv_scale);
         q.y = requant(y[1], inv_scale);
         q.z = requant(y[2], inv_scale);
         q.w = requant(y[3], inv_scale);
         *reinterpret_cast<char4*>(static_cast<int8_t*>(out) + o) = q;
+      } else if (STORE == kBF16) {
+        __nv_bfloat162* ob = reinterpret_cast<__nv_bfloat162*>(
+            static_cast<__nv_bfloat16*>(out) + o);
+        ob[0] = __floats2bfloat162_rn(y[0], y[1]);
+        ob[1] = __floats2bfloat162_rn(y[2], y[3]);
       } else {
         *reinterpret_cast<float4*>(static_cast<float*>(out) + o) =
             make_float4(y[0], y[1], y[2], y[3]);
@@ -455,30 +487,36 @@ using Kernel = void (*)(const int8_t*, const int8_t*, const float*,
 }  // namespace
 
 // x (B,H,W,Cin) int8 NHWC; w (k*k, Cout, Cin) int8; a, b (Cout) f32;
-// out (B,H,W,Cout) int8 when requant, else f32; all contiguous, x and w
-// 16-byte aligned. variant: 0 dp4a (any Cin, Cout), 1 wgmma (Cin % 16 ==
-// 0, Cout % 16 == 0, pad_lo < 128). Launches on `stream`, does not
-// synchronise, and returns cudaGetLastError(), or cudaErrorInvalidValue
-// for a shape the variant does not take.
+// out (B,H,W,Cout) f32 (store 0), int8 requantized at inv_scale (store 1)
+// or bf16 (store 2); all contiguous, x, w and out 16-byte aligned.
+// variant: 0 dp4a (any Cin, Cout), 1 wgmma (Cin % 16 == 0, Cout % 16 ==
+// 0, pad_lo < 128). Launches on `stream`, does not synchronise, and
+// returns cudaGetLastError(), or cudaErrorInvalidValue for a shape the
+// variant or a store the kernel does not take.
 extern "C" int dynseg_int8_block_conv(const void* x, const void* w,
                                       const void* a, const void* b, void* out,
                                       int B, int H, int W, int Cin, int Cout,
                                       int k, int dil, int pad_lo, float leaky,
-                                      int requant, float inv_scale,
+                                      int store, float inv_scale,
                                       int variant, void* stream) {
   const long long M = static_cast<long long>(B) * H * W;
   const auto s = static_cast<cudaStream_t>(stream);
   const bool tile16 = Cin % 16 == 0 && Cout % 16 == 0;
+  if (store != kF32 && store != kS8 && store != kBF16) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   Kernel fn = nullptr;
   int threads = 0, smem = 0, bm = 0, bn = 0;
   if (variant == 1 && tile16) {
-    static bool ready[2] = {false, false};
-    auto* kernel = requant ? &tc::k5_wgmma_kernel<true> : &tc::k5_wgmma_kernel<false>;
-    if (!ready[requant ? 1 : 0]) {
+    static bool ready[3] = {false, false, false};
+    auto* kernel = store == kS8     ? &tc::k5_wgmma_kernel<kS8>
+                   : store == kBF16 ? &tc::k5_wgmma_kernel<kBF16>
+                                    : &tc::k5_wgmma_kernel<kF32>;
+    if (!ready[store]) {
       const cudaError_t e = cudaFuncSetAttribute(
           kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, tc::SMEM_BYTES);
       if (e != cudaSuccess) return static_cast<int>(e);
-      ready[requant ? 1 : 0] = true;
+      ready[store] = true;
     }
     CUtensorMap wmap, xmap;
     cudaError_t e = tma::weight_map(&wmap, w, Cin, Cout, k * k, tc::BK, tc::BN);
@@ -492,10 +530,13 @@ extern "C" int dynseg_int8_block_conv(const void* x, const void* w,
     return static_cast<int>(cudaGetLastError());
   } else if (variant == 0) {
     const bool aligned = Cin % 16 == 0 && Cout % 4 == 0;
-    fn = requant ? (aligned ? &dp::k5_dp4a_kernel<true, true>
-                            : &dp::k5_dp4a_kernel<true, false>)
-                 : (aligned ? &dp::k5_dp4a_kernel<false, true>
-                            : &dp::k5_dp4a_kernel<false, false>);
+    if (store == kS8) {
+      fn = aligned ? &dp::k5_dp4a_kernel<kS8, true> : &dp::k5_dp4a_kernel<kS8, false>;
+    } else if (store == kBF16) {
+      fn = aligned ? &dp::k5_dp4a_kernel<kBF16, true> : &dp::k5_dp4a_kernel<kBF16, false>;
+    } else {
+      fn = aligned ? &dp::k5_dp4a_kernel<kF32, true> : &dp::k5_dp4a_kernel<kF32, false>;
+    }
     threads = dp::THREADS, bm = dp::BM, bn = dp::BN;
   } else {
     return static_cast<int>(cudaErrorInvalidValue);

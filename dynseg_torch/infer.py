@@ -13,10 +13,15 @@ cap. Dense mode runs one forward per pixel:
 blocks with a halo of at least the receptive radius reproduce the
 whole-tile forward, and their centres overwrite the map.
 
-The tiles stay resident on the device; tiles, probability and label maps
+Test-time augmentation (cfg.infer.tta, or a predict method's `tta`) runs
+either mode on the 8 dihedral transforms of a tile's own padded crop,
+maps each probability map back and argmaxes their mean.
+
+The packed tile set stays resident on the device while it fits
+cfg.infer.hbm_budget_gb; past it, it stays on the host and each predict
+uploads its one padded tile (`_tile`). Tiles, probability and label maps
 keep the reference's NHWC layout and dtypes. The device is the caller's
-(`train.resolve_device`). Not ported yet: test-time augmentation, the
-device mesh and host streaming past hbm_budget_gb.
+(`train.resolve_device`). Not ported yet: the device mesh.
 """
 
 from __future__ import annotations
@@ -37,6 +42,7 @@ from dynseg_torch.metrics import (confusion_matrix, erode_boundaries,
                                   scores_from_confusion)
 from dynseg_torch.models.dilated import build_model, receptive_radius
 from dynseg_torch.ops import quant as quant_ops
+from dynseg_torch.ops.dihedral import dihedral, dihedral_inv
 from dynseg_torch.train import resolve_device
 
 
@@ -70,8 +76,6 @@ class Inferencer:
     (`bridge.flax_to_torch`) on the same device."""
 
     def __init__(self, cfg: Config, tiles: TileSet, device):
-        if cfg.infer.tta:
-            raise NotImplementedError("test-time augmentation is not ported")
         # cuDNN runs float32 convs in TF32 by default; TF32 keeps ~3
         # decimal digits and would move the calibrated activation ranges
         # and the probabilities away from the float32 reference.
@@ -95,13 +99,18 @@ class Inferencer:
 
     def set_tiles(self, tiles: TileSet) -> None:
         """Bind a tile set: mirror-pad every tile with its own reflected
-        context, store it as uint8 where lossless, and upload it."""
+        context and store it as uint8 where lossless. A packed set within
+        cfg.infer.hbm_budget_gb (GiB) is uploaded whole; a larger one
+        stays on the host as numpy, and `_tile` uploads one tile a
+        predict, so the device holds one padded tile at a time."""
         padded = fill_padded_context(
             mirror_pad(tiles, self.pad, pad_masks=False), self.pad)
         self.valid_hw = np.asarray(tiles.valid_hw)
         self.padded_hw = tuple(int(v) for v in padded.images.shape[1:3])
         packed = padded.images.astype(storage_dtype(padded.images), copy=False)
-        self.images = torch.from_numpy(packed).to(self.device)
+        del padded
+        self._stream = packed.nbytes > int(self.cfg.infer.hbm_budget_gb * 1024**3)
+        self.images = packed if self._stream else torch.from_numpy(packed).to(self.device)
         self.mean = torch.as_tensor(tiles.mean, dtype=torch.float32,
                                     device=self.device)
         self.std = torch.as_tensor(tiles.std, dtype=torch.float32,
@@ -126,7 +135,7 @@ class Inferencer:
             s = min(128, h, w)
             y0 = self.pad + int(rng.integers(0, max(1, h - s + 1)))
             x0 = self.pad + int(rng.integers(0, max(1, w - s + 1)))
-            crop = self.images[t, y0:y0 + s, x0:x0 + s].float()
+            crop = self._tile(t)[y0:y0 + s, x0:x0 + s].float()
             crops.append((crop - self.mean) / self.std)
         ranges = quant_ops.calibrate(
             self.cfg.model, variables, crops, icfg.quant_calib_pct)
@@ -136,6 +145,13 @@ class Inferencer:
             min_ch=icfg.quant_min_ch, exit_int8=icfg.quant_exit)
         self._apply = quant_ops.make_apply(self.cfg.model)
         return qvars
+
+    def _tile(self, tile_idx: int) -> torch.Tensor:
+        """One padded tile on the device: uploaded from the host set when
+        streaming, else a view of the resident set."""
+        if self._stream:
+            return torch.from_numpy(self.images[tile_idx]).to(self.device)
+        return self.images[tile_idx]
 
     def _probs(self, variables, tile: torch.Tensor, origins: np.ndarray,
                size: int) -> torch.Tensor:
@@ -147,6 +163,15 @@ class Inferencer:
         cols = (o[:, 1, None] + ar)[:, None, :]
         x = (tile[rows, cols].float() - self.mean) / self.std
         return torch.softmax(self._apply(variables, x).float(), dim=-1)
+
+    def _source(self, tile_idx: int, override):
+        """(device tile, h, w, Hp, Wp): the padded tile to predict, its
+        valid extent and its padded extent."""
+        if override is None:
+            h, w = (int(x) for x in self.valid_hw[tile_idx])
+            return (self._tile(tile_idx), h, w) + self.padded_hw
+        tile, h, w = override
+        return (tile, int(h), int(w)) + tuple(int(x) for x in tile.shape[:2])
 
     def _collected(self, t: torch.Tensor) -> None:
         self.fold_peak_bytes = max(self.fold_peak_bytes, t.numel() * t.element_size())
@@ -183,15 +208,15 @@ class Inferencer:
     # ------------------------------------------------------------------ #
     @torch.inference_mode()
     def _window_device(self, variables, tile_idx: int,
-                       scales: Optional[Sequence[int]] = None):
+                       scales: Optional[Sequence[int]] = None, override=None):
         """Window voting left on the device: (pred uint8, summed probs,
         vote counts), all in valid coordinates. `fold_peak_bytes` is then
         the size of the largest tensor collected for a fold (a scale's or a
-        band's probabilities, or their permuted copy)."""
+        band's probabilities, or their permuted copy). override=(tile, h,
+        w) predicts that padded device tile, whose valid block is
+        [pad:pad+h, pad:pad+w], instead of tile `tile_idx` (TTA)."""
         scales = [int(s) for s in (scales or self.scales)]
-        h, w = (int(x) for x in self.valid_hw[tile_idx])
-        Hp, Wp = self.padded_hw
-        tile = self.images[tile_idx]
+        tile, h, w, Hp, Wp = self._source(tile_idx, override)
         prob = torch.zeros((Hp, Wp, self.nc), dtype=torch.float32,
                            device=self.device)
         cnt = torch.zeros((Hp, Wp), dtype=torch.float32, device=self.device)
@@ -235,10 +260,13 @@ class Inferencer:
         return pred, valid, cnt[p:p + h, p:p + w]
 
     @torch.inference_mode()
-    def _dense_device(self, variables, tile_idx: int, block: int, halo: int):
-        """Dense prediction left on the device: (pred uint8, probs, None)."""
-        h, w = (int(x) for x in self.valid_hw[tile_idx])
-        Hp, Wp = self.padded_hw
+    def _dense_device(self, variables, tile_idx: int, block: int, halo: int,
+                      override=None):
+        """Dense prediction left on the device: (pred uint8, probs, None).
+        `override` as in `_window_device`. The block clamps to the valid
+        extent with no floor, so that the halo'd block of a sliver tile
+        stays inside its padded extent."""
+        tile, h, w, Hp, Wp = self._source(tile_idx, override)
         block_eff = max(1, min(block, Hp - 2 * self.pad, Wp - 2 * self.pad))
 
         def starts_1d(extent: int) -> List[int]:
@@ -254,7 +282,6 @@ class Inferencer:
         if bb <= 0:
             bb = 8 if len(starts) >= 8 else len(starts)
         ext = block_eff + 2 * halo
-        tile = self.images[tile_idx]
         prob = torch.zeros((Hp, Wp, self.nc), dtype=torch.float32,
                            device=self.device)
         for lo in range(0, len(starts), bb):
@@ -281,16 +308,56 @@ class Inferencer:
                 f"dense halo {halo} exceeds the tile mirror pad {self.pad}")
 
     def predict_tile_device(self, variables, tile_idx: int,
-                            scales: Optional[Sequence[int]] = None) -> torch.Tensor:
-        """One tile's uint8 label map, per cfg.infer.mode, on the device."""
-        if self.cfg.infer.mode == "dense":
-            self._check_halo(self.cfg.infer.dense_halo)
+                            scales: Optional[Sequence[int]] = None,
+                            tta: Optional[bool] = None) -> torch.Tensor:
+        """One tile's uint8 label map, per cfg.infer.mode, on the device;
+        with tta (default cfg.infer.tta) the 8-way dihedral fusion."""
+        icfg = self.cfg.infer
+        if icfg.mode == "dense":
+            self._check_halo(icfg.dense_halo)
+        if icfg.tta if tta is None else tta:
+            return self._tta_device(variables, tile_idx, scales)[0]
+        if icfg.mode == "dense":
             pred, _, _ = self._dense_device(
-                variables, tile_idx, self.cfg.infer.dense_block,
-                self.cfg.infer.dense_halo)
+                variables, tile_idx, icfg.dense_block, icfg.dense_halo)
         else:
             pred, _, _ = self._window_device(variables, tile_idx, scales)
         return pred
+
+    @torch.inference_mode()
+    def _tta_device(self, variables, tile_idx: int,
+                    scales: Optional[Sequence[int]] = None,
+                    mode: Optional[str] = None, block: Optional[int] = None,
+                    halo: Optional[int] = None):
+        """Test-time dihedral augmentation on the device: (pred uint8,
+        fused probs). The tile's own padded crop [0, h+2p) x [0, w+2p)
+        (the per-tile reflect fill makes it the tile mirror-padded alone)
+        goes through each of the 8 transforms, so the valid block sits at
+        [pad : pad+h'] for every one; window mode normalises each map by
+        its vote counts; each map is transformed back, and the mean of
+        the 8 is argmaxed. 8x the forwards of one prediction."""
+        icfg = self.cfg.infer
+        mode = icfg.mode if mode is None else mode
+        block = icfg.dense_block if block is None else block
+        halo = icfg.dense_halo if halo is None else halo
+        h, w = (int(x) for x in self.valid_hw[tile_idx])
+        p = self.pad
+        solo = self._tile(tile_idx)[:h + 2 * p, :w + 2 * p]
+        acc = None
+        for k in range(8):
+            tile_k = dihedral(solo, k).contiguous()
+            hk, wk = (w, h) if k % 4 in (1, 3) else (h, w)
+            if mode == "dense":
+                _, prob_k, _ = self._dense_device(
+                    variables, tile_idx, block, halo, override=(tile_k, hk, wk))
+            else:
+                _, valid_k, cnt_k = self._window_device(
+                    variables, tile_idx, scales, override=(tile_k, hk, wk))
+                prob_k = valid_k / torch.clamp(cnt_k, min=1e-9)[..., None]
+            prob_k = dihedral_inv(prob_k, k)
+            acc = prob_k if acc is None else acc + prob_k
+        prob = acc / 8.0
+        return torch.argmax(prob, dim=-1).to(torch.uint8), prob
 
     @staticmethod
     def _finish(pred, prob, cnt, return_probs: bool):
@@ -304,20 +371,31 @@ class Inferencer:
 
     def predict_tile(self, variables, tile_idx: int,
                      scales: Optional[Sequence[int]] = None,
-                     return_probs: bool = True
+                     return_probs: bool = True, tta: Optional[bool] = None
                      ) -> Tuple[np.ndarray, Optional[np.ndarray]]:
         """Window-vote prediction of one tile over all scales: (pred (h,w)
-        int32, vote-averaged probs (h,w,nc) float32 or None)."""
+        int32, vote-averaged probs (h,w,nc) float32 or None). With tta
+        (default cfg.infer.tta) the probs are the 8-way dihedral fusion."""
+        if self.cfg.infer.tta if tta is None else tta:
+            pred, prob = self._tta_device(variables, tile_idx, scales, mode="window")
+            return self._finish(pred, prob, None, return_probs=return_probs)
         return self._finish(*self._window_device(variables, tile_idx, scales),
                             return_probs=return_probs)
 
     def predict_tile_dense(self, variables, tile_idx: int, block: int = 256,
-                           halo: int = 40, return_probs: bool = True
+                           halo: int = 40, return_probs: bool = True,
+                           tta: Optional[bool] = None
                            ) -> Tuple[np.ndarray, Optional[np.ndarray]]:
         """Dense prediction of one tile: (pred (h,w) int32, probs (h,w,nc)
         float32 or None). Exact for halo >= the receptive radius; halo
-        must not exceed the tile mirror pad."""
+        must not exceed the tile mirror pad. With tta (default
+        cfg.infer.tta) the probs are the 8-way dihedral fusion at the same
+        block and halo."""
         self._check_halo(halo)
+        if self.cfg.infer.tta if tta is None else tta:
+            pred, prob = self._tta_device(variables, tile_idx, mode="dense",
+                                          block=block, halo=halo)
+            return self._finish(pred, prob, None, return_probs=return_probs)
         return self._finish(*self._dense_device(variables, tile_idx, block, halo),
                             return_probs=return_probs)
 

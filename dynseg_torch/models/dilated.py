@@ -5,6 +5,8 @@ optional dropout (train mode, dropout_rate > 0) and a 1x1 score head,
 stride 1 throughout, so logits have the input's spatial shape for any
 patch size. The nets take and return NHWC tensors, the
 reference's layout; inside they run NCHW in the channels_last format.
+ModelConfig.compute_dtype ("float32" or "bfloat16") is the activations'
+dtype; params stay float32 and the logits are float32.
 """
 
 from __future__ import annotations
@@ -60,13 +62,24 @@ def to_nchw(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
 
 
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def compute_dtype(cfg: ModelConfig) -> torch.dtype:
+    """The torch dtype of cfg.compute_dtype."""
+    if cfg.compute_dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"compute_dtype {cfg.compute_dtype!r} not in "
+                         f"{tuple(COMPUTE_DTYPES)}")
+    return COMPUTE_DTYPES[cfg.compute_dtype]
+
+
 def _block(cfg: ModelConfig, cin: int, k: int, feats: int, dil: int,
            pool: bool) -> DilatedConvBlock:
     return DilatedConvBlock(
         cin, max(1, int(feats * cfg.width_multiplier)), k, dilation=dil,
         leaky_slope=cfg.leaky_slope, use_batch_norm=cfg.use_batch_norm,
         bn_momentum=cfg.bn_momentum, pool=pool, pool_window=cfg.pool_window,
-        pool_backward=cfg.pool_backward)
+        pool_backward=cfg.pool_backward, compute_dtype=compute_dtype(cfg))
 
 
 class _Dropout(nn.Module):
@@ -106,7 +119,8 @@ class DilatedNet(nn.Module):
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """(B, H, W, C) float32 -> (B, H, W, num_classes) float32 logits;
-        `generator` draws the train-mode dropout mask."""
+        `generator` draws the train-mode dropout mask. Each block casts
+        its input to the compute dtype."""
         h = to_nchw(x)
         for block in self.blocks:
             h = block(h)
@@ -116,7 +130,8 @@ class DilatedNet(nn.Module):
 class DilatedDenseNet(nn.Module):
     """dilated_icpr_rate6_densely: block i consumes the channel concat of
     the input and every earlier block's output; the head consumes the
-    concat of all block outputs, input excluded (dilated.py:99-115)."""
+    concat of all block outputs, input excluded (dilated.py:99-115). The
+    concats hold compute-dtype features, the input cast first."""
 
     def __init__(self, cfg: ModelConfig, num_input_bands: int):
         super().__init__()
@@ -131,7 +146,7 @@ class DilatedDenseNet(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        feats = [to_nchw(x)]
+        feats = [to_nchw(x).to(self.blocks[0].compute_dtype)]
         for block in self.blocks:
             feats.append(block(torch.cat(feats, dim=1)))
         h = self.dropout(torch.cat(feats[1:], dim=1), generator)
@@ -160,10 +175,8 @@ def receptive_radius(cfg: ModelConfig) -> int:
 def build_model(cfg: ModelConfig,
                 num_input_bands: Optional[int] = None) -> nn.Module:
     """Model factory over cfg.net_type, in eval mode and channels_last
-    (training calls .train()). Only compute_dtype float32 is ported."""
-    if cfg.compute_dtype != "float32":
-        raise NotImplementedError(
-            f"compute_dtype {cfg.compute_dtype!r}: the port runs float32 only")
+    (training calls .train()), computing in cfg.compute_dtype."""
+    compute_dtype(cfg)
     bands = cfg.num_input_bands if num_input_bands is None else num_input_bands
     if cfg.net_type == "dilated_icpr_rate6_densely":
         model = DilatedDenseNet(cfg, bands)

@@ -7,7 +7,8 @@ int32, then the block's whole epilogue before the one store:
     y = A * acc + B          (dequant sx*sw_c folded with BN or the bias)
     y = leaky_relu(y)
     out = int8(round(clip(y * (1/out_scale), -127, 127)))   if out_scale
-    out = y                                                 otherwise
+    out = y, stored as out_dtype (float32, or bfloat16
+          rounded once to nearest even)                    otherwise
 
 `pack_conv` prepares a block's operands once: the weights packed to
 (k*k, Cout, Cin), A and B as contiguous float32, and 1/out_scale as a host
@@ -22,7 +23,8 @@ The kernel has variants, chosen by `variant_for` from the shape alone:
 (the integer pipes) for any other shape, such as the dense-wired net's
 concat inputs of 131 channels; dp4a can be named for an aligned shape, to
 measure the tensor cores against it. `launches` counts the kernel's
-launches, `variant_launches` those of each variant.
+launches, `variant_launches` those of each variant and `out_launches`
+those of each output type (int8, float32, bfloat16).
 """
 
 from __future__ import annotations
@@ -38,13 +40,17 @@ import torch.nn.functional as F
 launches = 0
 VARIANTS = ("dp4a", "wgmma")  # the C entry's variant codes
 variant_launches = dict.fromkeys(VARIANTS, 0)
+# The C entry's store codes, by output dtype.
+STORES = {torch.float32: 0, torch.int8: 1, torch.bfloat16: 2}
+out_launches = {str(d).removeprefix("torch."): 0 for d in STORES}
 
 
 def reset_launches() -> None:
     global launches
     launches = 0
-    for v in VARIANTS:
-        variant_launches[v] = 0
+    for counts in (variant_launches, out_launches):
+        for v in counts:
+            counts[v] = 0
 
 
 def same_pads(k: int, dilation: int):
@@ -76,7 +82,8 @@ class PackedConv:
     k: int
     dilation: int
     leaky_slope: float       # the float32 value, as the kernel takes it
-    inv_scale: Optional[np.float32]  # 1/out_scale; None: float32 output
+    inv_scale: Optional[np.float32]  # 1/out_scale; None: out_dtype output
+    out_dtype: torch.dtype = torch.float32  # without requant
 
     @property
     def cin(self) -> int:
@@ -90,8 +97,13 @@ class PackedConv:
     def variant(self) -> str:
         return variant_for(self.cin, self.cout, self.k, self.dilation)
 
+    @property
+    def store_dtype(self) -> torch.dtype:
+        """The output's dtype: int8 with requant, else out_dtype."""
+        return torch.int8 if self.inv_scale is not None else self.out_dtype
 
-def _check(x, w, affine_a, affine_b, out_dtype):
+
+def _check(x, w, affine_a, affine_b):
     if x.dtype != torch.int8 or w.dtype != torch.int8:
         raise TypeError(f"int8 operands required, got {x.dtype}, {w.dtype}")
     if x.dim() != 4 or w.dim() != 4 or w.shape[0] != w.shape[1] \
@@ -101,17 +113,16 @@ def _check(x, w, affine_a, affine_b, out_dtype):
     cout = w.shape[3]
     if affine_a.shape != (cout,) or affine_b.shape != (cout,):
         raise ValueError(f"affine_a/affine_b must be ({cout},)")
-    if out_dtype == torch.bfloat16:
-        raise NotImplementedError("out_dtype bfloat16 is not ported")
-    if out_dtype != torch.float32:
-        raise TypeError(f"out_dtype must be float32, got {out_dtype}")
 
 
 def pack_conv(w: torch.Tensor, affine_a: torch.Tensor, affine_b: torch.Tensor,
-              *, dilation: int, leaky_slope: float,
-              out_scale=None) -> PackedConv:
+              *, dilation: int, leaky_slope: float, out_scale=None,
+              out_dtype: torch.dtype = torch.float32) -> PackedConv:
     """K5's operands from HWIO weights, on the weights' device. `out_scale`
-    (a number or a one-element tensor) is read to the host here, once."""
+    (a number or a one-element tensor) is read to the host here, once;
+    `out_dtype` is the output's dtype where out_scale is None."""
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"out_dtype must be float32 or bfloat16, got {out_dtype}")
     if w.dtype != torch.int8 or w.dim() != 4 or w.shape[0] != w.shape[1]:
         raise ValueError(f"w (k,k,Cin,Cout) int8 required, got "
                          f"{tuple(w.shape)} {w.dtype}")
@@ -123,7 +134,8 @@ def pack_conv(w: torch.Tensor, affine_a: torch.Tensor, affine_b: torch.Tensor,
         a=affine_a.float().contiguous(), b=affine_b.float().contiguous(),
         k=k, dilation=int(dilation),
         leaky_slope=float(np.float32(leaky_slope)),
-        inv_scale=None if out_scale is None else _inv_scale(out_scale))
+        inv_scale=None if out_scale is None else _inv_scale(out_scale),
+        out_dtype=out_dtype)
 
 
 def int8_block_conv_ref(x: torch.Tensor, w: torch.Tensor,
@@ -134,11 +146,12 @@ def int8_block_conv_ref(x: torch.Tensor, w: torch.Tensor,
     """Plain PyTorch version of K5 on any device. The accumulator is a
     float64 conv of the int8 values, which is exact here: |acc| <=
     k^2 * Cin * 127^2 < 2^53. The epilogue runs in float32 with one
-    rounding per operation, as the kernel's does."""
-    _check(x, w, affine_a, affine_b, out_dtype)
+    rounding per operation, as the kernel's does; a bfloat16 output is
+    that float32 value rounded once to nearest even."""
+    _check(x, w, affine_a, affine_b)
     return int8_block_conv_packed_ref(x, pack_conv(
         w, affine_a, affine_b, dilation=dilation, leaky_slope=leaky_slope,
-        out_scale=out_scale))
+        out_scale=out_scale, out_dtype=out_dtype))
 
 
 def int8_block_conv_packed_ref(x: torch.Tensor, pc: PackedConv) -> torch.Tensor:
@@ -151,7 +164,7 @@ def int8_block_conv_packed_ref(x: torch.Tensor, pc: PackedConv) -> torch.Tensor:
     y = y + pc.b
     y = torch.where(y >= 0, y, y * pc.leaky_slope)
     if pc.inv_scale is None:
-        return y.contiguous()
+        return y.to(pc.out_dtype).contiguous()
     y = y * torch.tensor(pc.inv_scale, device=y.device)
     return torch.round(torch.clamp(y, -127.0, 127.0)).to(torch.int8).contiguous()
 
@@ -159,7 +172,7 @@ def int8_block_conv_packed_ref(x: torch.Tensor, pc: PackedConv) -> torch.Tensor:
 def int8_block_conv_packed(x: torch.Tensor, pc: PackedConv,
                            variant: Optional[str] = None) -> torch.Tensor:
     """K5 on prepared operands: (B, H, W, Cin) int8 -> (B, H, W, Cout)
-    int8 (requant) or float32. CPU tensors take the plain version; CUDA
+    `pc.store_dtype`. CPU tensors take the plain version; CUDA
     tensors launch `variant` (default: `variant_for` the shape); anything
     else raises."""
     global launches
@@ -184,8 +197,7 @@ def int8_block_conv_packed(x: torch.Tensor, pc: PackedConv,
         raise ValueError("int8_block_conv: x must be 16-byte aligned for TMA")
     bsz, h, wd, _ = x.shape
     requant = pc.inv_scale is not None
-    out = torch.empty((bsz, h, wd, pc.cout), device=x.device,
-                      dtype=torch.int8 if requant else torch.float32)
+    out = torch.empty((bsz, h, wd, pc.cout), device=x.device, dtype=pc.store_dtype)
     if out.numel() == 0:
         return out
     from dynseg_torch.ops._build import load_library
@@ -193,13 +205,14 @@ def int8_block_conv_packed(x: torch.Tensor, pc: PackedConv,
     err = load_library().dynseg_int8_block_conv(
         x.data_ptr(), pc.w.data_ptr(), pc.a.data_ptr(), pc.b.data_ptr(),
         out.data_ptr(), bsz, h, wd, pc.cin, pc.cout, pc.k, pc.dilation,
-        same_pads(pc.k, pc.dilation)[0], pc.leaky_slope, int(requant),
+        same_pads(pc.k, pc.dilation)[0], pc.leaky_slope, STORES[out.dtype],
         float(pc.inv_scale) if requant else 1.0, VARIANTS.index(variant),
         torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError(f"int8_block_conv launch failed: CUDA error {err}")
     launches += 1
     variant_launches[variant] += 1
+    out_launches[str(out.dtype).removeprefix("torch.")] += 1
     return out
 
 
@@ -213,7 +226,8 @@ def int8_block_conv(x: torch.Tensor, w: torch.Tensor, affine_a: torch.Tensor,
     w: (k, k, Cin, Cout) int8 HWIO, per-output-channel quantized
     affine_a, affine_b: (Cout,) float32, y = A*acc + B
     out_scale: requantize to int8 at this activation scale when set
-    Returns (B, H, W, Cout) int8 (requant) or float32.
+    out_dtype: float32 or bfloat16, the output's dtype without requant
+    Returns (B, H, W, Cout) int8 (requant) or out_dtype.
 
     CPU tensors take `int8_block_conv_ref`; CUDA tensors launch the
     kernel; anything else raises.
@@ -224,7 +238,7 @@ def int8_block_conv(x: torch.Tensor, w: torch.Tensor, affine_a: torch.Tensor,
             leaky_slope=leaky_slope, out_scale=out_scale, out_dtype=out_dtype)
     if x.device.type != "cuda":
         raise RuntimeError(f"int8_block_conv: no kernel for device {x.device}")
-    _check(x, w, affine_a, affine_b, out_dtype)
+    _check(x, w, affine_a, affine_b)
     return int8_block_conv_packed(x, pack_conv(
         w, affine_a, affine_b, dilation=dilation, leaky_slope=leaky_slope,
-        out_scale=out_scale))
+        out_scale=out_scale, out_dtype=out_dtype))

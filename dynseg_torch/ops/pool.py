@@ -20,10 +20,12 @@ tile fits the shared memory (every pool of dilated_icpr_rate6), and
 wrapper's kernel launches (one per backward), `variant_launches` those of
 each variant.
 
-An even window has an asymmetric SAME footprint that the symmetric tap set
-cannot express: as in the reference, `max_pool_s1` then warns and takes
-ATen's own backward. That is a shape gate; a kernel that fails to build or
-launch raises.
+K4 takes float32 and an odd window, as the reference's kernel does. An
+even window has an asymmetric SAME footprint that the symmetric tap set
+cannot express, and a bfloat16 input (compute_dtype="bfloat16") is not
+K4's type: as in the reference, `max_pool_s1` then warns once per shape,
+dtype and window and takes ATen's own backward (the first max). That is
+a shape and type gate; a kernel that fails to build or launch raises.
 """
 
 from __future__ import annotations
@@ -218,17 +220,21 @@ _warned: set = set()
 
 
 def max_pool_s1(x: torch.Tensor, window: int = 3) -> torch.Tensor:
-    """The pool of pool_backward="pallas": K4's tie-split backward for an
-    odd window; an even window warns once per shape and takes ATen's
-    backward, like the reference's fallback to the XLA VJP."""
-    if window % 2 == 1:
+    """The pool of pool_backward="pallas" on an NCHW tensor: K4's
+    tie-split backward for a float32 input and an odd window; any other
+    warns once per (shape, dtype, window), in the reference's words with
+    the NHWC shape, and takes ATen's backward, like the reference's
+    fallback to the XLA VJP."""
+    if window % 2 == 1 and x.dtype == torch.float32:
         return MaxPoolS1.apply(x, window)
-    key = (tuple(x.shape), window)
+    shape = (x.shape[0], x.shape[2], x.shape[3], x.shape[1])
+    dtype = str(x.dtype).removeprefix("torch.")
+    key = (shape, dtype, window)
     if key not in _warned:
         _warned.add(key)
         warnings.warn(
             f"--pool_backward pallas requested but unsupported for shape "
-            f"{tuple(x.shape)} dtype {x.dtype} window {window} (needs an odd "
+            f"{shape} dtype {dtype} window {window} (needs float32 and an odd "
             f"window) — falling back to ATen's max-pool backward",
             RuntimeWarning, stacklevel=2)
     return pool_forward(x, window)

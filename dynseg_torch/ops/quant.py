@@ -16,6 +16,12 @@ prepares K5's operands once per model (packed weights, A, B and the
 requant's 1/out_scale on the host), and `make_apply`'s forward reuses them,
 so no launch folds, packs or reads a scale back from the device.
 
+The activations run in ModelConfig.compute_dtype with the reference's
+rounding points: each block casts its float input to it, K5 stores the
+last int8 block's output in it, and the float blocks' BatchNorm runs in it
+with the statistics cast to it (not float32 as in the train-capable nets
+of `models`, whose BatchNorm is flax's). Logits are float32.
+
 `variables` is the port's state_dict (see `bridge`); the forward takes and
 returns NHWC tensors and runs NCHW channels_last inside.
 """
@@ -29,7 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from dynseg_torch.config import ModelConfig
-from dynseg_torch.models.dilated import arch, to_nchw
+from dynseg_torch.models.dilated import arch, compute_dtype, to_nchw
 from dynseg_torch.ops.int8_conv import (PackedConv, int8_block_conv_packed,
                                        pack_conv)
 from dynseg_torch.ops.pool import pool_forward
@@ -122,8 +128,8 @@ def pack_blocks(mcfg: ModelConfig, variables: Dict[str, torch.Tensor],
                 stream: bool = True) -> Dict[str, PackedConv]:
     """K5's prepared operands of every quantized block, by block name.
     With `stream` (the serving forward) a block of the sequential wiring
-    requantizes to its out_scale; without it (calibration) every block
-    outputs float32."""
+    requantizes to its out_scale; without it (calibration), and where the
+    next block runs in float, a block outputs the compute dtype."""
     specs = block_specs(mcfg, int(variables["blocks.0.conv.weight"].shape[1]))
     packed = {}
     for i, spec in enumerate(specs):
@@ -136,7 +142,7 @@ def pack_blocks(mcfg: ModelConfig, variables: Dict[str, torch.Tensor],
         packed[spec["name"]] = pack_conv(
             p["conv.weight"].permute(2, 3, 1, 0), a, b,
             dilation=spec["dilation"], leaky_slope=mcfg.leaky_slope,
-            out_scale=out_scale)
+            out_scale=out_scale, out_dtype=compute_dtype(mcfg))
     return packed
 
 
@@ -150,6 +156,9 @@ def _block_forward(mcfg: ModelConfig, spec: dict, p: Dict[str, torch.Tensor],
     int8 at that scale; when `out_scale` is set, the epilogue requantizes
     (`pc` was packed with it) and the pool runs on int8. Returns (y,
     carried_scale), where carried_scale is out_scale iff y is int8."""
+    dtype = compute_dtype(mcfg)
+    if in_scale is None:
+        x = x.to(dtype)
     if record is not None:
         # Calibration probe: this block's input range (float path only).
         record[spec["name"]] = _percentile(x.abs(), calib_pct)
@@ -161,14 +170,23 @@ def _block_forward(mcfg: ModelConfig, spec: dict, p: Dict[str, torch.Tensor],
             return (_pool_int8(y, window) if window else y), out_scale
         return (pool_forward(y, window) if window else y), None
     if in_scale is not None:
-        x = x.float() * in_scale
-    y = F.conv2d(x, p["conv.weight"], padding="same", dilation=spec["dilation"])
+        x = (x.float() * in_scale).to(dtype)
+    y = F.conv2d(x, p["conv.weight"].to(dtype), padding="same",
+                 dilation=spec["dilation"])
+
+    def cast(name):
+        return p[name].to(dtype)[:, None, None]
+
     if mcfg.use_batch_norm:
-        inv = torch.rsqrt(p["bn.running_var"] + 1e-5)
-        y = ((y - p["bn.running_mean"][:, None, None]) * inv[:, None, None]
-             * p["bn.weight"][:, None, None] + p["bn.bias"][:, None, None])
+        # eps rounded to the compute dtype (the reference adds a bf16
+        # 1e-5), as a host number: a device tensor made here would copy
+        # from the host and hold the host up at every block.
+        eps = float(torch.tensor(1e-5, dtype=dtype))
+        inv = torch.rsqrt(cast("bn.running_var") + eps)
+        y = ((y - cast("bn.running_mean")) * inv * cast("bn.weight")
+             + cast("bn.bias"))
     else:
-        y = y + p["conv.bias"][:, None, None]
+        y = y + cast("conv.bias")
     y = F.leaky_relu(y, mcfg.leaky_slope)
     if out_scale is not None:
         y = _quantize_act(y, out_scale)
@@ -190,6 +208,7 @@ def _forward(mcfg: ModelConfig, variables: Dict[str, torch.Tensor],
     `packed` is `pack_blocks(mcfg, variables)`, made here when not given."""
     if packed is None:
         packed = pack_blocks(mcfg, variables, stream=record is None)
+    dtype = compute_dtype(mcfg)
     specs = block_specs(mcfg, x.shape[-1])
     h = to_nchw(x.float())
     carried = None  # h is int8 at this scale when set
@@ -197,7 +216,7 @@ def _forward(mcfg: ModelConfig, variables: Dict[str, torch.Tensor],
         # Dense wiring mixes every earlier map into each input, so there
         # is no single int8 stream: each quantized block quantizes its
         # own concat input.
-        feats = [h]
+        feats = [h.to(dtype)]
         for spec in specs:
             out, _ = _block_forward(
                 mcfg, spec, _block_params(variables, spec),
@@ -218,10 +237,10 @@ def _forward(mcfg: ModelConfig, variables: Dict[str, torch.Tensor],
         record["__head__"] = _percentile(h.abs(), calib_pct)
     if carried is not None:
         # int8 exit: dequantize the last block's int8 map for the head.
-        h = h.float() * carried
-    logits = F.conv2d(h, variables["head.conv.weight"])
-    logits = logits + variables["head.conv.bias"][:, None, None]
-    return logits.permute(0, 2, 3, 1)
+        h = (h.float() * carried).to(dtype)
+    logits = F.conv2d(h.to(dtype), variables["head.conv.weight"].to(dtype))
+    logits = logits + variables["head.conv.bias"].to(dtype)[:, None, None]
+    return logits.float().permute(0, 2, 3, 1)
 
 
 def make_apply(mcfg: ModelConfig):

@@ -396,14 +396,35 @@ def test_command_line_without_a_card_exits_non_zero(tmp_path):
 
 @pytest.mark.parametrize("extra", [
     ["--operation", "export"], ["--operation", "serve"],
-    ["--operation", "testing", "--tta"],
-    ["--operation", "testing", "--compute_dtype", "bfloat16"],
     ["--operation", "training", "--num_devices", "2"],
     ["--operation", "training", "--num_devices", "2", "--shard_tiles"],
-], ids=["export", "serve", "tta", "bfloat16", "num_devices", "shard_tiles"])
+], ids=["export", "serve", "num_devices", "shard_tiles"])
 def test_parts_not_ported_are_refused(extra, tmp_path):
     with pytest.raises(SystemExit, match="not ported"):
         cli.main([*extra, "--device", "cpu", "--output_path", str(tmp_path)])
+
+
+@pytest.mark.parametrize("extra", [
+    ["--tta"], ["--compute_dtype", "bfloat16"],
+    ["--tta", "--compute_dtype", "bfloat16", "--inference_mode", "dense",
+     "--dense_block", "32", "--hbm_budget_gb", "0"],
+], ids=["tta", "bfloat16", "dense_tta_bfloat16_streamed"])
+def test_tta_and_bfloat16_testing_run_to_a_total_line(port_run, tmp_path, capsys, extra):
+    """--operation testing with --tta and --compute_dtype bfloat16 (once
+    together, in dense mode with the tiles streamed from the host):
+    restored, scored, one TOTAL line; the trained net still scores."""
+    out = _copy(port_run[0], tmp_path)
+    capsys.readouterr()
+    assert cli.main(["--operation", "testing", "--device", "cpu", "--no_prediction_maps",
+                     "--output_path", str(out), *DATA, *extra]) == 0
+    printed = capsys.readouterr().out.splitlines()
+    assert "restored checkpoint at iteration 20" in printed
+    totals = [m for m in printed if m.startswith("TOTAL: OA=")]
+    assert len(totals) == 1
+    saved = json.loads((out / "scores.json").read_text())
+    assert saved["inference"]["tta"] == ("--tta" in extra)
+    assert saved["oa"] > 0.9
+    assert totals[0].startswith(f"TOTAL: OA={saved['oa']:.4f}")
 
 
 # --------------------------------------------------------------------- #

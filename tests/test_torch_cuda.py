@@ -90,6 +90,26 @@ def test_dp4a_variant_matches_plain_bitwise_on_aligned_shapes(cuda, shape):
     assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_bfloat16_output_matches_plain_bitwise(cuda, shape):
+    """The bfloat16 store (the int8 forward under compute_dtype bfloat16)
+    at every case, in the shape's variant and in dp4a: one launch each,
+    counted as a bfloat16 output, bitwise equal to plain."""
+    args, kw = _k5_case(cuda, shape)
+    kw.update(out_scale=None, out_dtype=torch.bfloat16)
+    pc = int8_conv.pack_conv(*args[1:], **kw)
+    want = int8_conv.int8_block_conv_packed_ref(args[0], pc)
+    assert want.dtype == torch.bfloat16
+    for variant in sorted({shape[-1], "dp4a"}):
+        before, before_bf = int8_conv.variant_launches[variant], int8_conv.out_launches["bfloat16"]
+        got = int8_conv.int8_block_conv_packed(args[0], pc, variant)
+        assert int8_conv.variant_launches[variant] == before + 1
+        assert int8_conv.out_launches["bfloat16"] == before_bf + 1
+        torch.cuda.synchronize()
+        assert got.dtype == torch.bfloat16 and torch.equal(got, want), variant
+    assert torch.equal(int8_conv.int8_block_conv(*args, **kw), want)
+
+
 def test_tensor_core_variant_refuses_ragged_channels(cuda):
     args, kw = _k5_case(cuda, SHAPES[-3])
     pc = int8_conv.pack_conv(*args[1:], **kw)

@@ -75,12 +75,52 @@ def test_wrapper_on_cpu_takes_plain_version():
     assert int8_conv.launches == before  # no kernel launched on the CPU
 
 
-def test_bfloat16_output_is_not_ported():
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_bfloat16_output_matches_pallas_interpret(name):
+    """out_dtype bfloat16 (the reference's int8 forward under
+    compute_dtype bfloat16): the float32 epilogue value rounded once to
+    nearest even. Bitwise equal to the interpret-mode kernel's
+    `y.astype(o_ref.dtype)` wherever the two float32 epilogues agree
+    bitwise; where XLA's FMA moved the float32 value by an ulp (see the
+    module docstring), the rounding may land one bfloat16 ulp apart. The
+    public entry and the prepared one agree."""
+    case = CASES[name]
+    x, w, a, b = _inputs(case, seed=len(name) + 7)
+
+    def pallas(dtype):
+        return np.asarray(pallas_conv.int8_block_conv(
+            jnp.asarray(x), jnp.asarray(w), jnp.asarray(a), jnp.asarray(b),
+            dilation=case["dil"], leaky_slope=0.1, out_dtype=dtype,
+            interpret=True).astype(jnp.float32))
+
+    args = [torch.from_numpy(v) for v in (x, w, a, b)]
+
+    def port(dtype):
+        return int8_conv.int8_block_conv(*args, dilation=case["dil"],
+                                         leaky_slope=0.1, out_dtype=dtype)
+
+    want, got = pallas(jnp.bfloat16), port(torch.bfloat16)
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    got = got.float().numpy()
+    same32 = port(torch.float32).numpy() == pallas(jnp.float32)
+    assert same32.mean() > 0.5
+    np.testing.assert_array_equal(got[same32], want[same32])
+    ulp = 2.0 ** (np.floor(np.log2(np.abs(want[~same32]))) - 7)
+    assert np.all(np.abs(got[~same32] - want[~same32]) <= ulp)
+    assert (want < 0).any() and (want > 0).any()
+    pc = int8_conv.pack_conv(args[1], args[2], args[3], dilation=case["dil"],
+                             leaky_slope=0.1, out_dtype=torch.bfloat16)
+    assert pc.store_dtype == torch.bfloat16
+    assert torch.equal(int8_conv.int8_block_conv_packed(args[0], pc).float(),
+                       torch.from_numpy(got))
+
+
+def test_unsupported_output_dtype_is_refused():
     x, w, a, b = _inputs(CASES["k3d5"], seed=2)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
         int8_conv.int8_block_conv(
             *(torch.from_numpy(v) for v in (x, w, a, b)), dilation=5,
-            leaky_slope=0.1, out_dtype=torch.bfloat16)
+            leaky_slope=0.1, out_dtype=torch.float16)
 
 
 @pytest.mark.parametrize("shape,want", [

@@ -1,7 +1,13 @@
 """dynseg_torch's weight bridge and nets against the Flax reference: the
 same numpy-seeded weights and inputs go through both packages, and the
 eval forward must agree to float32 tolerance (the bounds of
-test_golden_torch.py)."""
+test_golden_torch.py). Under compute_dtype bfloat16 both round the
+activations at the same points (input, conv output, BatchNorm result,
+head), but their bfloat16 convs accumulate in other orders, so a value
+may land one bfloat16 ulp (2^-8 relative) away and the next layers carry
+it: logits within 3e-2 of their largest magnitude; the BatchNorm running
+statistics, float32 means over such activations, within 1e-3 of each
+vector's largest magnitude."""
 
 import jax
 import jax.numpy as jnp
@@ -134,3 +140,48 @@ def test_net_without_batch_norm_matches_flax_apply():
     with torch.inference_mode():
         got = net(torch.from_numpy(x)).numpy()
     np.testing.assert_allclose(got, want, atol=5e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("train", [False, True], ids=["eval", "train"])
+@pytest.mark.parametrize("net_type", NET_TYPES)
+def test_bfloat16_net_matches_flax_apply(net_type, train):
+    """compute_dtype bfloat16: params float32, bfloat16 activations,
+    float32 logits; in train mode BatchNorm normalises with the batch
+    statistics (float32) and updates the float32 running ones."""
+    width = 0.125 if net_type == "dilated_icpr_rate6_densely" else 0.25
+    cfg = ModelConfig(net_type=net_type, num_classes=4, num_input_bands=3,
+                      width_multiplier=width, compute_dtype="bfloat16")
+    x = np.random.default_rng(5).normal(size=(2, 17, 15, 3)).astype(np.float32)
+    variables = _seeded_stats(init_variables_np(_port(cfg), num_input_bands=3, seed=1), 6)
+    model = jax_dilated.build_model(cfg)
+    if train:
+        want, updated = model.apply(variables, jnp.asarray(x), train=True,
+                                    mutable=["batch_stats"])
+    else:
+        want = model.apply(variables, jnp.asarray(x), train=False)
+    want = np.asarray(want)
+    assert want.dtype == np.float32
+
+    net = torch_dilated.build_model(_port(cfg))
+    net.load_state_dict(flax_to_torch(variables))
+    net.train(train)
+    assert all(p.dtype == torch.float32 for p in net.parameters())
+    with torch.no_grad():
+        got = net(torch.from_numpy(x)).numpy()
+    assert got.dtype == np.float32 and got.shape == want.shape
+    np.testing.assert_allclose(got, want, rtol=0, atol=3e-2 * np.abs(want).max())
+    if train:
+        back = torch_to_flax(net.state_dict())["batch_stats"]
+        for name, stats in updated["batch_stats"].items():
+            for key in ("mean", "var"):
+                ref = np.asarray(stats["BatchNorm_0"][key])
+                port = back[name]["BatchNorm_0"][key]
+                assert port.dtype == np.float32
+                np.testing.assert_allclose(port, ref, rtol=0,
+                                           atol=1e-3 * np.abs(ref).max(), err_msg=name)
+
+
+def test_compute_dtype_must_be_known():
+    cfg = port_config.ModelConfig(compute_dtype="float16")
+    with pytest.raises(ValueError, match="compute_dtype"):
+        torch_dilated.build_model(cfg)

@@ -203,3 +203,33 @@ def test_nhwc_of_a_channels_last_tensor_is_a_view():
     y = torch.randn(2, 8, 5, 7)
     assert pool._nhwc(y).data_ptr() != y.data_ptr()
     assert torch.equal(pool._nhwc(y), y.permute(0, 2, 3, 1))
+
+
+def test_bfloat16_max_pool_s1_warns_once_and_takes_aten_backward():
+    """A bfloat16 input (compute_dtype bfloat16) is not K4's type: as the
+    reference's gate, max_pool_s1 warns once per (shape, dtype, window),
+    in the reference's words up to its list of needs, and the gradient is
+    ATen's first-max backward in bfloat16; no kernel is launched."""
+    x_np = np.random.default_rng(11).integers(0, 4, (2, 7, 9, 12)).astype(np.float32)
+    x = torch.from_numpy(x_np).bfloat16().permute(0, 3, 1, 2).requires_grad_()
+    g = torch.from_numpy(np.random.default_rng(12).normal(
+        size=(2, 12, 7, 9)).astype(np.float32)).bfloat16()
+    pool._warned.clear()
+    jax_pool._warned_fallbacks.clear()
+    before = pool.launches
+    with warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always")
+        y = pool.max_pool_s1(x, 3)
+        pool.max_pool_s1(x.detach(), 3)
+        jax_pool._warn_fallback((2, 7, 9, 12), jnp.bfloat16, 3)
+    y.backward(g)
+    assert pool.launches == before
+    got, want = [str(r.message) for r in rec if issubclass(r.category, RuntimeWarning)]
+    head = want[:want.index("(needs")]
+    assert head == ("--pool_backward pallas requested but unsupported for shape "
+                    "(2, 7, 9, 12) dtype bfloat16 window 3 ")
+    assert got.startswith(head) and "falling back" in got
+    xa = x.detach().clone().requires_grad_()
+    torch.nn.functional.max_pool2d(xa, 3, stride=1, padding=1).backward(g)
+    assert y.dtype == torch.bfloat16 and x.grad.dtype == torch.bfloat16
+    assert torch.equal(x.grad, xa.grad)

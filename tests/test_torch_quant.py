@@ -167,3 +167,40 @@ def test_prepared_operands_give_the_same_int8_forward(setup, exit_int8):
     assert len(calls) == 1
     for g in got:
         assert torch.equal(g, want)
+
+
+@pytest.mark.parametrize("exit_int8", [False, True], ids=["float_exit", "int8_exit"])
+def test_bfloat16_mixed_forward_matches_reference_k5_route(exit_int8):
+    """compute_dtype bfloat16: calibration over bfloat16 activations (the
+    ranges within 1e-5, as in float32), then the mixed forward against
+    the reference's K5 route. The float blocks' BatchNorm runs in
+    bfloat16 with bfloat16 statistics, and with the float exit block 5's
+    K5 launch stores bfloat16. The two sides' bfloat16 convs accumulate
+    in other orders and a requantized code may flip with them: logits
+    within 3e-2 of their largest magnitude, and the argmax equal except
+    where the reference's top two logits are within twice that."""
+    cfg = ModelConfig(net_type="dilated_icpr_rate6", num_classes=4, num_input_bands=3,
+                      quant_conv="pallas", compute_dtype="bfloat16")
+    variables = _seeded(cfg, seed=0)
+    x = np.random.default_rng(1).normal(size=(1, 21, 24, 3)).astype(np.float32)
+    ranges = jax_quant.calibrate(cfg, variables, [jnp.asarray(x)])
+    got_ranges = quant.calibrate(_port(cfg), flax_to_torch(variables), [torch.from_numpy(x)])
+    assert got_ranges.keys() == ranges.keys()
+    for name, want in ranges.items():
+        np.testing.assert_allclose(got_ranges[name], want, rtol=1e-5, err_msg=name)
+    qvars = jax_quant.quantize_variables(cfg, variables, ranges, exit_int8=exit_int8)
+    want = np.asarray(jax_quant.make_apply(cfg)(qvars, jnp.asarray(x)))
+    qsd = quant.quantize_variables(_port(cfg), flax_to_torch(variables), ranges,
+                                   exit_int8=exit_int8)
+    packed = quant.pack_blocks(_port(cfg), qsd)
+    assert [pc.store_dtype for pc in packed.values()] == [
+        torch.int8, torch.int8, torch.int8 if exit_int8 else torch.bfloat16]
+    with torch.inference_mode():
+        got = quant.make_apply(_port(cfg))(qsd, torch.from_numpy(x)).numpy()
+    assert got.dtype == np.float32 and got.shape == want.shape
+    tol = 3e-2 * np.abs(want).max()
+    np.testing.assert_allclose(got, want, rtol=0, atol=tol)
+    differ = got.argmax(-1) != want.argmax(-1)
+    top2 = np.sort(want, axis=-1)[..., -2:]
+    assert np.all(top2[differ, 1] - top2[differ, 0] < 2 * tol)
+    assert differ.mean() <= 0.01
