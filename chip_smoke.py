@@ -103,8 +103,30 @@ runs without them.
      per scale beside phase 7's, loss finite and falling, K2 launches =
      gathers, no K4 launch.
 
-Phases 12-15 run after phase 4 and phase 16 after phase 8, each beside
-the float32 phase it is compared with.
+ 17. export and serve, on phase 11's trained checkpoint: first K5 (wgmma)
+     vs plain, bitwise, at the shapes the serve path gives it: a dense
+     call at the server's defaults (8 blocks of 1024 + 2 * 40 halo, over
+     2^31 output elements at Cout 256) and window batches of 64 and 128
+     at 65^2, for the three blocks with the int8 exit's requant and block
+     5's float32 store too; then `python -m
+     dynseg_torch --operation export` in two subprocesses side by side,
+     bfloat16 (the default) and --quant int8 --quant_exit, each loaded
+     and checked on cuda and cpu; each artifact loaded onto the card and
+     held to the live net restored in this process on a 2048^2 raster in
+     dense blocks (bf16 within 1e-2, labels equal but near a tie; int8
+     within 1e-5, K5 launched 3 times per forward, all wgmma); then
+     `--operation serve` over each at its defaults on a port the OS
+     picks (read from its "listening:" line): ready on /healthz
+     after its warm-up, a dense labels POST on the 2048^2 raster and a
+     window probs POST on a 512^2 one (latency, Mpx/s), /metrics, and a
+     SIGTERM drain to exit 0; the answers equal an in-process
+     ServingEngine on the same artifact at the server's settings (labels
+     bitwise, probabilities within 1e-6); the serve path's K5 launches
+     are the server's own over the two requests (its "server stopped"
+     line; it counts from 0 after its warm-up), and equal the engine's.
+
+Phases 12-15 run after phase 4, phase 16 after phase 8 and phase 17
+after phase 11, each beside the phase it is compared with.
 
 With --profile DIR, it also traces one warm call of each serving run and
 one warm train step per pool backward with torch.profiler, and writes the
@@ -124,10 +146,13 @@ import argparse
 import collections
 import dataclasses
 import importlib.abc
+import io
 import json
 import math
 import os
+import re
 import shutil
+import signal
 import subprocess
 import sys
 import time
@@ -196,6 +221,11 @@ POOL_CHANNELS = (64, 64, 128, 128, 256, 256)
 CLI_NITER, CLI_RESUME_NITER, CLI_EVERY = 40, 60, 20
 # Phase 14's window-mode tile, and phase 16's short pallas run.
 TTA_TILE, BF16_PALLAS_STEPS = 512, 5
+# Phase 17's K5 shapes, (batch, side): a dense call at the server's
+# defaults (8 blocks of 1024 + 2 * 40 halo pixels a side) and window
+# batches of the largest scale; samples per plain-version call.
+SERVE_K5_SHAPES = ((8, 1104), (64, 65), (128, 65))
+SERVE_K5_PLAIN_CHUNK = 2
 
 
 def log(msg: str) -> None:
@@ -1070,6 +1100,297 @@ def run_cli(card: str) -> dict:
     return {"walls": walls, "k5": k5, "differ": differ}
 
 
+class _LivePredictor:
+    """The live net behind the artifact interface the serving engine
+    calls (`probs_device`), so that the artifact and the net in this
+    process go through the same dense blocks."""
+
+    def __init__(self, manifest: dict, forward):
+        self.manifest, self.forward = manifest, forward
+
+    def has(self, name: str) -> bool:
+        return name != "dense_labels"
+
+    @torch.inference_mode()
+    def probs_device(self, x):
+        return self.forward(torch.from_numpy(np.ascontiguousarray(x)).to(DEVICE))
+
+
+def check_k5_serve_shapes(int8_conv) -> float:
+    """Phase 17, first: K5's serving variant (wgmma) vs plain, bitwise, at
+    the shapes the serve path gives it (SERVE_K5_SHAPES), for each block
+    with the requant of the int8 exit's route and block 5 with its
+    float32 store too. The data is made on the card from a seed; the
+    plain version runs SERVE_K5_PLAIN_CHUNK samples a call. Returns the
+    largest difference."""
+    gen = torch.Generator(device=DEVICE).manual_seed(17)
+
+    def codes(shape, mean, std):
+        return (torch.randn(shape, generator=gen, device=DEVICE) * std + mean
+                ).round_().clamp_(-127, 127).to(torch.int8)
+
+    worst = 0.0
+    for name, cin, cout, k, dil, requant in GEOMETRIES:
+        w = codes((k, k, cin, cout), 0, 35)
+        a = (torch.rand(cout, generator=gen, device=DEVICE) + 0.5) / (
+            math.sqrt(k * k * cin) * 38 * 35)
+        b = torch.randn(cout, generator=gen, device=DEVICE) * 0.1
+        for out_scale in ((3.0 / 127,) if requant else (3.0 / 127, None)):
+            pc = int8_conv.pack_conv(w, a, b, dilation=dil, leaky_slope=0.1,
+                                     out_scale=out_scale)
+            if pc.variant != "wgmma":
+                raise SystemExit(f"K5 {name}: the serving block does not take wgmma")
+            for bsz, side in SERVE_K5_SHAPES:
+                x = torch.empty((bsz, side, side, cin), dtype=torch.int8, device=DEVICE)
+                for i in range(bsz):
+                    x[i] = codes((side, side, cin), 10, 38)
+                got = int8_conv.int8_block_conv_packed(x, pc)
+                ms = time_ms(lambda: int8_conv.int8_block_conv_packed(x, pc), 3)
+                diff = 0.0
+                for i in range(0, bsz, SERVE_K5_PLAIN_CHUNK):
+                    want = int8_conv.int8_block_conv_packed_ref(
+                        x[i:i + SERVE_K5_PLAIN_CHUNK], pc)
+                    part = got[i:i + SERVE_K5_PLAIN_CHUNK]
+                    if not torch.equal(part, want):
+                        diff = max(diff, (part.float() - want.float()).abs().max().item())
+                    del want, part
+                macs = bsz * side * side * k * k * cin * cout
+                bound, bound_by = bound_ms(2.0 * macs, x.numel() + pc.w.numel()
+                                           + got.numel() * got.element_size() + 8 * cout,
+                                           INT8_PEAK)
+                store = str(pc.store_dtype).removeprefix("torch.")
+                log(f"K5 {name} at serve shape x({bsz},{side},{side},{cin}) -> {store} "
+                    f"({got.numel()} elements): kernel == plain bitwise: "
+                    f"{diff == 0}; {ms:.4f} ms, {bound / ms:.3f} of the bound "
+                    f"{bound:.4f} ms ({bound_by})")
+                if diff != 0:
+                    raise SystemExit(f"K5 {name} at x({bsz},{side},{side},{cin}): kernel "
+                                     f"disagrees with plain ({diff})")
+                worst = max(worst, diff)
+                del x, got
+                torch.cuda.empty_cache()
+    return worst
+
+
+def _live_forward(out: str, argv: list):
+    """The checkpoint under `out` restored in this process by the code the
+    export ran (`cli.restore_for_serving` on the export's flags `argv`):
+    the served variables and, for int8, the calibration on the test
+    tiles. Returns raw pixels -> softmax on the card."""
+    from dynseg_torch import cli
+    from dynseg_torch.models.dilated import build_model
+    from dynseg_torch.ops import quant as quant_ops
+
+    args = cli.build_argparser().parse_args(["--output_path", out, *argv])
+    r = cli.restore_for_serving(cli.config_from_args(args), lambda *_: None,
+                                device=DEVICE)
+    mean = torch.tensor(r.stats["mean"], dtype=torch.float32, device=DEVICE)
+    std = torch.tensor(r.stats["std"], dtype=torch.float32, device=DEVICE)
+    if r.quant_variables is not None:
+        apply = quant_ops.make_apply(r.cfg.model)
+        net = lambda x: apply(r.quant_variables, x)  # noqa: E731
+    else:
+        model = build_model(r.cfg.model, r.cfg.model.num_input_bands).to(DEVICE)
+        model.load_state_dict(r.variables)
+        net = model
+    return lambda x: torch.softmax(net((x.float() - mean) / std).float(), dim=-1)
+
+
+def run_export_serve(int8_conv, card: str) -> dict:
+    """Phase 17: K5 at the serve path's shapes, then --operation export
+    (bfloat16, and int8 with the int8 exit) from phase 11's checkpoint,
+    each artifact against the live net on the card, then --operation
+    serve over each, answered requests held to an in-process
+    ServingEngine on the same artifact, and a SIGTERM drain."""
+    import urllib.request
+
+    from dynseg_torch import cli
+    from dynseg_torch.export import ExportedPredictor
+    from dynseg_torch.serve import ServingEngine
+
+    max_err = check_k5_serve_shapes(int8_conv)
+    cli_window_batch = cli.build_argparser().get_default("window_batch")
+    root = os.path.dirname(os.path.abspath(__file__))
+    base = os.path.join(root, OUT_DIR, "cli")
+    dirs = {"bf16": os.path.join(root, OUT_DIR, "export_bf16"),
+            "int8": os.path.join(root, OUT_DIR, "export_int8")}
+    for d in dirs.values():  # both write <output_path>/export: two copies
+        shutil.rmtree(d, ignore_errors=True)
+        shutil.copytree(base, d, ignore=shutil.ignore_patterns("export", "*.png", "rasters"))
+    common = ["--device", DEVICE, "--dataset", "synthetic", "--dataset_kwargs",
+              json.dumps({"size": TRAIN_TILE, "num_tiles": 4}),
+              "--values", ",".join(map(str, SCALES))]
+    flags = {name: ["--operation", "export", "--export_platforms", "cuda,cpu",
+                    *extra, *common]
+             for name, extra in (("bf16", []), ("int8", ["--quant", "int8", "--quant_exit"]))}
+    t0 = time.perf_counter()
+    procs = {}
+    for name, d in dirs.items():
+        with open(os.path.join(root, OUT_DIR, f"export_{name}.log"), "w") as f:
+            procs[name] = subprocess.Popen(
+                [sys.executable, "-m", "dynseg_torch", "--output_path", d, *flags[name]],
+                stdout=f, stderr=subprocess.STDOUT, cwd=root)
+    try:
+        for name, proc in procs.items():
+            rc = proc.wait(timeout=600)
+            with open(os.path.join(root, OUT_DIR, f"export_{name}.log")) as f:
+                text = f.read()
+            if rc != 0:
+                print(text[-3000:], file=sys.stderr)
+                raise SystemExit(f"export {name} exited {rc}")
+            log(f"CLI export {name}: exit 0, wall {time.perf_counter() - t0:.1f} s "
+                f"(both exports side by side) [{card}]")
+            log("  " + next(m for m in text.splitlines()
+                            if "exported serving artifact" in m))
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+    m_entries = ("probs", "probs_u8", "dense_labels")
+    rng = np.random.default_rng(17)
+    raster = rng.integers(0, 256, (2048, 2048, 3), dtype=np.uint8)
+    small = rng.integers(0, 256, (512, 512, 3), dtype=np.uint8)
+    out = {}
+    for name, d in dirs.items():
+        exp = os.path.join(d, "export")
+        t1 = time.perf_counter()
+        pred = ExportedPredictor.load(exp, device=DEVICE)
+        for entry in m_entries:
+            pred._fn(entry)  # deserialize onto the card now, to time it
+        t_load = time.perf_counter() - t1
+        m = pred.manifest
+        sizes = {a["file"]: os.path.getsize(os.path.join(exp, a["file"]))
+                 for a in m["artifacts"].values()}
+        log(f"artifact {name}: compute_dtype {m['compute_dtype']}, quant_blocks "
+            f"{m['quant_blocks']}, quant_exit {m['quant_exit']}, platforms "
+            f"{m['platforms']}, custom_ops {m.get('custom_ops', [])}, bytes {sizes}; "
+            f"checksums and the three programs loaded onto the card in {t_load:.2f} s")
+        if m["platforms"] != ["cuda", "cpu"]:
+            raise SystemExit(f"artifact {name}: not checked on cuda and cpu")
+        live = _LivePredictor(m, _live_forward(d, flags[name]))
+        calls = []
+        probs_device = pred.probs_device
+        pred.probs_device = lambda x, f=probs_device: calls.append(len(x)) or f(x)
+        int8_conv.reset_launches()
+        got = ServingEngine(pred).dense(raster)
+        launches, variants = int8_conv.launches, dict(int8_conv.variant_launches)
+        pred.probs_device = probs_device
+        want = ServingEngine(live).dense(raster)
+        dp = float(np.abs(got - want).max())
+        differ = got.argmax(-1) != want.argmax(-1)
+        top2 = np.sort(want, axis=-1)[..., -2:]
+        near = bool((top2[differ, 1] - top2[differ, 0] < 1e-2).all())
+        log(f"artifact {name} vs live net, 2048^2 in dense blocks (calls {calls}): "
+            f"max|dprob| {dp:.3e}, labels differing {int(differ.sum())} (all near a "
+            f"tie: {near}); K5 launches {launches} {variants}")
+        if name == "bf16" and (dp > 1e-2 or not near):
+            raise SystemExit("bf16 artifact disagrees with the live net")
+        if name == "int8" and (dp > 1e-5 or launches != 3 * len(calls)
+                               or variants["wgmma"] != launches):
+            raise SystemExit("int8 artifact: disagrees with the live forward, or K5 "
+                             "was not launched 3 times (wgmma) per forward")
+        out[name] = {"pred": pred, "dir": d}
+        del live
+        torch.cuda.empty_cache()
+
+    for name, rec in out.items():
+        log_path = os.path.join(root, OUT_DIR, f"serve_{name}.log")
+        with open(log_path, "w") as f:
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "dynseg_torch", "--operation", "serve",
+                 "--output_path", rec["dir"], "--serve_port", "0", *common],
+                stdout=f, stderr=subprocess.STDOUT, cwd=root)
+        try:
+            t0 = time.perf_counter()
+            url = None
+            while True:
+                if proc.poll() is not None:
+                    with open(log_path) as f:
+                        print(f.read()[-3000:], file=sys.stderr)
+                    raise SystemExit(f"serve {name} exited {proc.returncode} before ready")
+                if time.perf_counter() - t0 > 300:
+                    raise SystemExit(f"serve {name}: not ready in 300 s")
+                if url is None:  # the port the OS gave the server
+                    with open(log_path) as f:
+                        listening = re.search(r"^listening: .* on (http://\S+:\d+) ",
+                                              f.read(), re.M)
+                    url = listening and listening.group(1)
+                    time.sleep(0.2)
+                    continue
+                try:
+                    urllib.request.urlopen(f"{url}/healthz", timeout=2).read()
+                    break
+                except OSError:
+                    time.sleep(0.2)
+            ready = time.perf_counter() - t0
+            with open(log_path) as f:
+                warm = next(m for m in f.read().splitlines() if m.startswith("warm-up done"))
+            answers, lat = {}, {}
+            for key, query, img in (("dense labels", "mode=dense&output=labels", raster),
+                                    ("window probs", "mode=window&output=probs", small)):
+                buf = io.BytesIO()
+                np.save(buf, img)
+                t1 = time.perf_counter()
+                body = urllib.request.urlopen(urllib.request.Request(
+                    f"{url}/predict?{query}", data=buf.getvalue(),
+                    headers={"Content-Type": "application/x-npy"}), timeout=600).read()
+                lat[key] = time.perf_counter() - t1
+                answers[key] = np.load(io.BytesIO(body))
+            metrics = json.loads(urllib.request.urlopen(f"{url}/metrics", timeout=10).read())
+            proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(timeout=60)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        with open(log_path) as f:
+            text = f.read()
+        stopped = [m for m in text.splitlines() if m.startswith("server stopped")]
+        if rc != 0 or not stopped:
+            print(text[-3000:], file=sys.stderr)
+            raise SystemExit(f"serve {name}: SIGTERM drain exit {rc}")
+        # The server's K5 launches over the two requests: it reset its
+        # count after the warm-up and prints it at stop.
+        served = re.search(r"K5 launches (\d+)", stopped[0])
+        rec["launches"] = int(served.group(1)) if served else 0
+        # The same requests through an in-process engine on the artifact,
+        # at the server's settings: the CLI's --window_batch, the rest
+        # serve's defaults.
+        eng = ServingEngine(rec["pred"], window_batch=cli_window_batch)
+        int8_conv.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        want_l, _ = eng.predict(raster, mode="dense", want_probs=False)
+        t_dense = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        _, want_p = eng.predict(small, mode="window")
+        t_window = time.perf_counter() - t1
+        peak = torch.cuda.max_memory_allocated()
+        engine_launches = int8_conv.launches
+        same_l = np.array_equal(answers["dense labels"], want_l)
+        dp = float(np.abs(answers["window probs"] - want_p).max())
+        log(f"serve {name}: ready in {ready:.1f} s ({warm}), exit 0 after SIGTERM "
+            f"({stopped[0]}) [{card}]")
+        for key, img in (("dense labels", raster), ("window probs", small)):
+            px = img.shape[0] * img.shape[1]
+            log(f"  POST {key} {img.shape[0]}^2: {lat[key]:.4f} s, "
+                f"{px / lat[key] / 1e6:.3f} Mpx/s")
+        log(f"  in-process engine (first calls of the dense labels shapes): dense labels "
+            f"{t_dense:.4f} s, window probs {t_window:.4f} s; device peak {peak} "
+            f"bytes; K5 launches {engine_launches} (the server's: {rec['launches']})")
+        log(f"  /metrics {json.dumps(metrics)}")
+        log(f"  answers == in-process engine: labels bitwise {same_l}, "
+            f"probs max|d| {dp:.2e}")
+        if not same_l or dp > 1e-6:
+            raise SystemExit(f"serve {name}: answers differ from the in-process engine")
+        if rec["launches"] != engine_launches or (name == "int8") != (rec["launches"] > 0):
+            raise SystemExit(f"serve {name}: the server launched K5 {rec['launches']} "
+                             f"times, the in-process engine {engine_launches}")
+    return {"serve_launches": out["int8"]["launches"], "max_abs_err": max_err}
+
+
 def check_k5_bf16_out(int8_conv) -> dict:
     """Phase 12: K5 with the bfloat16 store vs plain, bitwise, at phase 2's
     geometries in both variants, each timed beside the float32 store of
@@ -1497,14 +1818,19 @@ def main() -> int:
     p1 = check_p1_kernel(int8_probe_conv)
     p1["launches"] = run_probe(int8_probe_conv)
     run_cli(card)
+    served = run_export_serve(int8_conv, card)
+    k5["serve_launches"] = served["serve_launches"]
+    k5["max_abs_err"] = max(k5["max_abs_err"], served["max_abs_err"])
 
     def entry(name, source, replaces, k):
         # library_ms: no single PyTorch call computes any of the four
         # functions (no CUDA int8 conv; ATen's max-pool backward routes a
         # tie to the first max; the gather fuses crop, normalise and labels).
-        # K5 adds its bf16 store's time, bound and launches (phases 12-13).
+        # K5 adds its bf16 store's time, bound and launches (phases 12-13)
+        # and its launches in the HTTP server over phase 17's requests.
         extra = {key: k[key] for key in ("bf16_out_ms", "bf16_out_bound_ms",
-                                         "bf16_out_launches") if key in k}
+                                         "bf16_out_launches", "serve_launches")
+                 if key in k}
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": k["launches"],
                 "max_abs_err": k["max_abs_err"], "ms": k["ms"],

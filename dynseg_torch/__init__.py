@@ -19,6 +19,11 @@ the name of its `dynseg` counterpart so that a reader finds both halves:
   * `train`           the training path;
   * `checkpoint`      checkpoints, resume, best tracking, and the importer
                       of dynseg's checkpoints;
+  * `export`          the serving artifact: three `torch.export` programs
+                      with params and normalization baked in, and
+                      `ExportedPredictor`, which loads them onto a device;
+  * `serve`           the HTTP server over an artifact
+                      (`python -m dynseg_torch.serve`);
   * `cli`, `__main__` `python -m dynseg_torch`, the reference's flags plus
                       `--device`;
   * `probes`          `python -m dynseg_torch.probes.int8_kernel_probe`;

@@ -1,7 +1,8 @@
 """Entry points of the port (counterpart of dynseg/cli.py).
 
     python -m dynseg_torch --operation training|testing|validate_test|
-        predict|info|check_data --device cuda|cpu [the flags of dynseg]
+        predict|export|serve|info|check_data --device cuda|cpu
+        [the flags of dynseg]
 
 The flags are the reference's (`build_argparser`, held equal to
 `dynseg.cli.build_argparser` by tests/test_torch_cli.py) plus `--device`,
@@ -16,6 +17,10 @@ is visible the run stops with a message instead of falling back to the CPU.
     the test tiles (--scales_from_scheduler fuses the top-K scales);
   * predict: label maps of unlabeled rasters (--predict_path,
     --predict_chunk) from the checkpoint and its stats sidecar alone;
+  * export: the checkpoint as a `torch.export` serving artifact under
+    <output_path>/export (dynseg_torch/export.py), float in bfloat16 by
+    default or int8 (--quant int8, calibrated on the test tiles);
+  * serve: the HTTP server over that artifact (dynseg_torch/serve.py);
   * info: the checkpoint's model card; check_data: the dataset pre-flight.
 
 --tta fuses the 8 dihedral transforms of each tile in either mode;
@@ -23,8 +28,8 @@ is visible the run stops with a message instead of falling back to the CPU.
 training, testing and predict, float or int8; --hbm_budget_gb (GiB) keeps
 a larger test set on the host and uploads one tile a prediction.
 
-Not ported, and refused with a message: --operation export|serve,
---num_devices > 1, --shard_tiles. Knobs of the reference's XLA programs
+Not ported, and refused with a message: --num_devices > 1,
+--shard_tiles. Knobs of the reference's XLA programs
 that change no result have no effect here: --scan_chunk,
 --dense_scan_chunk, --quant_conv (the int8 blocks always run K5).
 --window_fold off is accepted: the port's one window accumulator gives
@@ -43,7 +48,7 @@ import json
 import os
 import sys
 import time
-from typing import List, Optional
+from typing import List, NamedTuple, Optional
 
 import numpy as np
 
@@ -85,8 +90,11 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="training; testing/validate_test (synonyms): "
                         "full-tile prediction with metrics; predict: "
                         "unlabeled rasters (--predict_path); info: the "
-                        "checkpoint's model card; check_data: validate a "
-                        "dataset dump. export and serve are not ported")
+                        "checkpoint's model card; export: a torch.export "
+                        "serving artifact under <output_path>/export "
+                        "(dynseg_torch/export.py); serve: the HTTP server "
+                        "over it (dynseg_torch/serve.py); check_data: "
+                        "validate a dataset dump")
     p.add_argument("--predict_path", default="",
                    help="file or directory of rasters for --operation predict")
     p.add_argument("--predict_chunk", type=int, default=0,
@@ -165,7 +173,7 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--no_keep_best", dest="keep_best", action="store_false",
                    help="disable best-validation checkpoint tracking")
     p.add_argument("--use_best", action="store_true",
-                   help="at testing/predict/info, restore the "
+                   help="at testing/predict/export/info, restore the "
                         "best-validation checkpoint instead of the latest")
     p.add_argument("--ema_decay", type=float, default=0.0,
                    help="per-step exponential moving average of the params "
@@ -202,7 +210,8 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="window = multi-scale voting; dense = blockwise "
                         "whole-tile forward")
     p.add_argument("--dense_block", type=int, default=None,
-                   help="dense-mode block size (default 256)")
+                   help="dense-mode block size (default 256; --operation "
+                        "serve defaults to its own 1024 unless this is set)")
     p.add_argument("--dense_halo", type=int, default=40)
     p.add_argument("--dense_block_batch", type=int, default=0,
                    help="dense blocks per forward; 0 = auto (8)")
@@ -226,7 +235,8 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="test-time augmentation: average the softmax maps "
                         "of the 8 dihedral transforms (8x the compute)")
     p.add_argument("--quant", default="none", choices=["none", "int8"],
-                   help="post-training int8 serving path at testing/predict")
+                   help="post-training int8 serving path at "
+                        "testing/predict/export")
     p.add_argument("--quant_min_ch", type=int, default=128,
                    help="minimum channel count (both operands) for a "
                         "block to be quantized")
@@ -238,11 +248,15 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="with --quant int8: also run the final block's "
                         "pool and the head input in int8")
     p.add_argument("--export_platforms", default="tpu,cpu",
-                   help="for --operation export (not ported)")
+                   help="--operation export writes one program that loads on "
+                        "any torch device; it is loaded and checked against "
+                        "the live net on each torch device of this list "
+                        "(other names, such as tpu, are skipped), and the "
+                        "manifest's platforms lists those checked")
     p.add_argument("--serve_host", default="127.0.0.1")
     p.add_argument("--serve_port", type=int, default=8400)
     p.add_argument("--max_request_mb", type=int, default=512,
-                   help="serve: reject request bodies above this (not ported)")
+                   help="serve: reject request bodies above this (413)")
     p.add_argument("--momentum", type=float, default=0.9)
     p.add_argument("--profile_dir", default="",
                    help="write a torch.profiler chrome trace of the run here")
@@ -901,6 +915,98 @@ def run_predict(cfg: Config, predict_path: str, log=print,
     return paths
 
 
+class ServingRestore(NamedTuple):
+    """What an export bakes: the checkpoint's config, served variables
+    and, under --quant int8, the calibrated quantized variables."""
+
+    cfg: Config
+    variables: dict
+    quant_variables: Optional[dict]
+    stats: dict
+    scheduler: object
+    step: int
+
+
+def restore_for_serving(cfg: Config, log=print, use_best: bool = False,
+                        use_ema: Optional[bool] = None, *,
+                        device) -> ServingRestore:
+    """The checkpoint and its stats sidecar restored for serving: the
+    checkpoint's model, its trained scales, the served variables and,
+    under --quant int8, the net calibrated on the test tiles on `device`,
+    as testing calibrates it."""
+    from dynseg_torch.checkpoint import CheckpointManager
+    from dynseg_torch.sched.scheduler import ScaleScheduler
+    from dynseg_torch.train import init_state_template
+
+    ckpt = CheckpointManager(cfg.train.output_path)
+    stats = ckpt.load_stats()
+    if stats is None:
+        raise FileNotFoundError(
+            f"no stats.json under {ckpt.dir} — export needs the stats "
+            f"sidecar a training run writes")
+    cfg = _adopt_checkpoint_model(cfg, stats)
+    scheduler = ScaleScheduler(cfg.sched, seed=cfg.train.seed)
+    state, step = ckpt.restore_state(init_state_template(cfg, device),
+                                     scheduler, best=use_best)
+    log(f"restored {'best ' if use_best else ''}checkpoint at iteration {step}")
+    # The manifest's train_scales and window_scales describe the
+    # checkpoint's trained scales, not a CLI --values default.
+    cfg = _reconcile_scales(cfg, scheduler, log)
+    cfg = dataclasses.replace(
+        cfg, sched=dataclasses.replace(
+            cfg.sched, values=tuple(int(v) for v in scheduler.values)))
+    variables = _serving_variables(cfg, state, stats, use_ema, log,
+                                   from_best=use_best)
+    quant_variables = None
+    if cfg.infer.quant != "none":
+        from dynseg_torch.infer import Inferencer
+
+        _, calib_tiles = load_dataset(
+            cfg.data.dataset, cfg.data.dataset_path, cfg.data.fold,
+            test_only=True, **_loader_kwargs(cfg))
+        if calib_tiles.num_bands != cfg.model.num_input_bands:
+            raise ValueError(
+                f"calibration tiles have {calib_tiles.num_bands} bands but "
+                f"the checkpoint was trained on {cfg.model.num_input_bands} "
+                f"(match --bands/--extra_bands, or export without --quant)")
+        calib_tiles.mean = np.asarray(stats["mean"], np.float32)
+        calib_tiles.std = np.asarray(stats["std"], np.float32)
+        quant_variables = Inferencer(cfg, calib_tiles, device).enable_quant(variables)
+        blocks = sorted(f"DilatedConvBlock_{k.split('.')[1]}"
+                        for k in quant_variables if k.endswith(".w_scale"))
+        log(f"int8 export: quantized blocks {blocks}"
+            f"{' + int8 exit' if 'exit.act_scale' in quant_variables else ''}")
+    return ServingRestore(cfg, variables, quant_variables, stats, scheduler, int(step))
+
+
+def run_export(cfg: Config, platforms=("tpu", "cpu"), log=print,
+               use_best: bool = False, use_ema: Optional[bool] = None, *,
+               device) -> str:
+    """Export the checkpoint as a standalone serving artifact (three
+    `torch.export` programs with symbolic shapes, params and normalization
+    baked in: dynseg_torch/export.py) from the checkpoint and its stats
+    sidecar alone (`restore_for_serving`)."""
+    from dynseg_torch.export import export_predictor
+
+    r = restore_for_serving(cfg, log, use_best, use_ema, device=device)
+    out_dir = export_predictor(
+        r.cfg, r.variables, r.stats["mean"], r.stats["std"],
+        os.path.join(r.cfg.train.output_path, "export"),
+        platforms=platforms,
+        extra_meta={
+            "scheduler_best_scales": [int(s) for s in r.scheduler.best_scales(
+                len(r.scheduler.values))],
+            "checkpoint_step": r.step,
+            "dataset": r.stats.get("dataset"),
+        },
+        quant_variables=r.quant_variables)
+    with open(os.path.join(out_dir, "manifest.json")) as f:
+        checked = json.load(f)["platforms"]
+    log(f"exported serving artifact ({r.cfg.model.compute_dtype}) -> {out_dir} "
+        f"(loaded and checked on: {', '.join(checked) or 'none'})")
+    return out_dir
+
+
 def run_info(cfg: Config, log=print, use_best: bool = False) -> dict:
     """The checkpoint's model card: architecture, parameter count,
     provenance, scheduler state and best-validation record. Reads the
@@ -948,15 +1054,10 @@ def run_info(cfg: Config, log=print, use_best: bool = False) -> dict:
 def _refuse_unported(args: argparse.Namespace) -> None:
     """Stop, with a message naming the missing part, on a flag whose part
     is not ported."""
-    missing = []
-    if args.operation in ("export", "serve"):
-        missing.append(f"--operation {args.operation} (the StableHLO export "
-                       f"and the HTTP server)")
     if args.num_devices > 1 or args.shard_tiles:
-        missing.append("--num_devices > 1 / --shard_tiles (data parallelism; "
-                       "the port runs on one device)")
-    if missing:
-        raise SystemExit("dynseg_torch: not ported yet: " + "; ".join(missing))
+        raise SystemExit("dynseg_torch: not ported yet: --num_devices > 1 / "
+                         "--shard_tiles (data parallelism; the port runs on "
+                         "one device)")
 
 
 @contextlib.contextmanager
@@ -1032,8 +1133,35 @@ def main(argv: Optional[List[str]] = None) -> int:
                         use_best=args.use_best,
                         predict_chunk=args.predict_chunk,
                         use_ema=args.use_ema, device=device)
+        elif args.operation == "export":
+            platforms = tuple(
+                s for s in args.export_platforms.replace(" ", "").split(",") if s)
+            run_export(cfg, platforms=platforms, log=logger,
+                       use_best=args.use_best, use_ema=args.use_ema,
+                       device=device)
         elif args.operation == "info":
             run_info(cfg, log=logger, use_best=args.use_best)
+        elif args.operation == "serve":
+            from dynseg_torch.serve import main as serve_main
+
+            export_dir = os.path.join(cfg.train.output_path, "export")
+            if not os.path.isdir(export_dir):
+                raise SystemExit(f"no export under {export_dir} — run "
+                                 f"--operation export first")
+            logger.close()
+            return serve_main([
+                "--export_dir", export_dir,
+                "--host", args.serve_host,
+                "--port", str(args.serve_port),
+                "--window_batch", str(args.window_batch),
+                "--max_request_mb", str(args.max_request_mb),
+                "--device", args.device,
+            ] + (  # only when explicit: serve's own default is 1024
+                ["--dense_block", str(args.dense_block)]
+                if args.dense_block is not None else []
+            ) + (  # 0 = auto: serve's own default (8) stands
+                ["--dense_block_batch", str(args.dense_block_batch)]
+                if args.dense_block_batch > 0 else []))
         else:  # testing / validate_test
             run_testing(cfg, log=logger,
                         scales_from_scheduler=args.scales_from_scheduler,

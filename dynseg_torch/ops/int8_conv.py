@@ -12,10 +12,13 @@ int32, then the block's whole epilogue before the one store:
 
 `pack_conv` prepares a block's operands once: the weights packed to
 (k*k, Cout, Cin), A and B as contiguous float32, and 1/out_scale as a host
-float32. `int8_block_conv_packed` launches the hand-written Hopper kernel
-(csrc/int8_block_conv.cu) on them for CUDA tensors and reads nothing back
-from the device; it takes the plain PyTorch version only for tensors on
-the CPU. `int8_block_conv` packs and launches in one call.
+float32. `int8_block_conv_packed` calls the registered operator
+`dynseg_torch::int8_block_conv` on them, with every operand explicit, so
+that an exported program (`dynseg_torch.export`) holds one call of it per
+quantized block: for CUDA tensors the op launches the hand-written Hopper
+kernel (csrc/int8_block_conv.cu) and reads nothing back from the device;
+for CPU tensors it runs the plain PyTorch version. `int8_block_conv` packs
+and launches in one call.
 
 The kernel has variants, chosen by `variant_for` from the shape alone:
 "wgmma" (the tensor cores, fed by TMA) where Cin and Cout are multiples of
@@ -24,7 +27,8 @@ The kernel has variants, chosen by `variant_for` from the shape alone:
 concat inputs of 131 channels; dp4a can be named for an aligned shape, to
 measure the tensor cores against it. `launches` counts the kernel's
 launches, `variant_launches` those of each variant and `out_launches`
-those of each output type (int8, float32, bfloat16).
+those of each output type (int8, float32, bfloat16), whether the eager
+forward or a loaded artifact called the op.
 """
 
 from __future__ import annotations
@@ -42,6 +46,7 @@ VARIANTS = ("dp4a", "wgmma")  # the C entry's variant codes
 variant_launches = dict.fromkeys(VARIANTS, 0)
 # The C entry's store codes, by output dtype.
 STORES = {torch.float32: 0, torch.int8: 1, torch.bfloat16: 2}
+STORE_DTYPES = {v: k for k, v in STORES.items()}
 out_launches = {str(d).removeprefix("torch."): 0 for d in STORES}
 
 
@@ -156,64 +161,105 @@ def int8_block_conv_ref(x: torch.Tensor, w: torch.Tensor,
 
 def int8_block_conv_packed_ref(x: torch.Tensor, pc: PackedConv) -> torch.Tensor:
     """`int8_block_conv_ref` on prepared operands."""
-    lo, hi = same_pads(pc.k, pc.dilation)
-    xd = F.pad(x.permute(0, 3, 1, 2).double(), (lo, hi, lo, hi))
-    w = pc.w.reshape(pc.k, pc.k, pc.cout, pc.cin).permute(2, 3, 0, 1)
-    acc = F.conv2d(xd, w.double(), dilation=pc.dilation)
-    y = acc.permute(0, 2, 3, 1).float() * pc.a
-    y = y + pc.b
-    y = torch.where(y >= 0, y, y * pc.leaky_slope)
-    if pc.inv_scale is None:
-        return y.to(pc.out_dtype).contiguous()
-    y = y * torch.tensor(pc.inv_scale, device=y.device)
+    return _plain(x, pc.w, pc.a, pc.b, pc.k, pc.dilation,
+                  same_pads(pc.k, pc.dilation)[0], pc.leaky_slope,
+                  STORES[pc.store_dtype], _inv_arg(pc))
+
+
+def _inv_arg(pc: PackedConv) -> float:
+    # The op's inv_scale argument: 1/out_scale, or 1.0 without requant.
+    return 1.0 if pc.inv_scale is None else float(pc.inv_scale)
+
+
+def _plain(x, w, a, b, k: int, dilation: int, pad: int, leaky_slope: float,
+           store: int, inv_scale: float) -> torch.Tensor:
+    """The plain version on the C entry's operands, on any device. The
+    accumulator is a float64 conv of the int8 values, exact since |acc| <=
+    k^2 * Cin * 127^2 < 2^53; the epilogue runs in float32 with one
+    rounding per operation."""
+    cout, cin = int(w.shape[1]), int(w.shape[2])
+    hi = (k - 1) * dilation - pad
+    xd = F.pad(x.permute(0, 3, 1, 2).double(), (pad, hi, pad, hi))
+    wd = w.reshape(k, k, cout, cin).permute(2, 3, 0, 1).double()
+    acc = F.conv2d(xd, wd, dilation=dilation)
+    y = acc.permute(0, 2, 3, 1).float() * a
+    y = y + b
+    y = torch.where(y >= 0, y, y * leaky_slope)
+    if store != STORES[torch.int8]:
+        return y.to(STORE_DTYPES[store]).contiguous()
+    y = y * torch.tensor(inv_scale, dtype=torch.float32, device=y.device)
     return torch.round(torch.clamp(y, -127.0, 127.0)).to(torch.int8).contiguous()
 
 
-def int8_block_conv_packed(x: torch.Tensor, pc: PackedConv,
-                           variant: Optional[str] = None) -> torch.Tensor:
-    """K5 on prepared operands: (B, H, W, Cin) int8 -> (B, H, W, Cout)
-    `pc.store_dtype`. CPU tensors take the plain version; CUDA
-    tensors launch `variant` (default: `variant_for` the shape); anything
-    else raises."""
+# K5 as a registered operator, so that a `torch.export` program (the
+# int8 serving artifact, `dynseg_torch.export`) calls it as one node and
+# launches the kernel when it runs on the card. Every operand is explicit:
+# x, the packed weights, A and B, and the numbers the C entry takes;
+# `variant` indexes VARIANTS and `store` is a value of STORES. On the CPU
+# the op runs the plain version.
+@torch.library.custom_op("dynseg_torch::int8_block_conv", mutates_args=(),
+                         device_types="cpu")
+def _op(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+        k: int, dilation: int, pad: int, leaky_slope: float, store: int,
+        inv_scale: float, variant: int) -> torch.Tensor:
+    return _plain(x, w, a, b, k, dilation, pad, leaky_slope, store, inv_scale)
+
+
+@_op.register_fake
+def _(x, w, a, b, k, dilation, pad, leaky_slope, store, inv_scale, variant):
+    return x.new_empty((*x.shape[:3], w.shape[1]), dtype=STORE_DTYPES[store])
+
+
+@_op.register_kernel("cuda")
+def _launch(x, w, a, b, k, dilation, pad, leaky_slope, store, inv_scale, variant):
+    """The op on the card: one launch of csrc/int8_block_conv.cu, counted.
+    A launch that fails raises; nothing falls back to the plain version."""
     global launches
-    if x.dtype != torch.int8 or x.dim() != 4 or x.shape[3] != pc.cin:
-        raise ValueError(f"x (B,H,W,{pc.cin}) int8 required, got "
-                         f"{tuple(x.shape)} {x.dtype}")
-    if x.device.type == "cpu":
-        return int8_block_conv_packed_ref(x, pc)
-    if x.device.type != "cuda":
-        raise RuntimeError(f"int8_block_conv: no kernel for device {x.device}")
     if not x.is_contiguous():
         raise ValueError("int8_block_conv: x must be NHWC-contiguous")
-    for t in (pc.w, pc.a, pc.b):
+    for t in (w, a, b):
         if t.device != x.device:
             raise ValueError(f"operands on {t.device} and {x.device}")
-    variant = variant or pc.variant
-    if variant != "dp4a" and pc.variant == "dp4a":
-        raise ValueError(f"variant {variant} needs Cin and Cout multiples of "
-                         f"16 and a pad under 128, got {pc.cin}, {pc.cout}, "
-                         f"{same_pads(pc.k, pc.dilation)[0]}")
-    if variant == "wgmma" and x.data_ptr() % 16:
+    if VARIANTS[variant] == "wgmma" and x.data_ptr() % 16:
         raise ValueError("int8_block_conv: x must be 16-byte aligned for TMA")
-    bsz, h, wd, _ = x.shape
-    requant = pc.inv_scale is not None
-    out = torch.empty((bsz, h, wd, pc.cout), device=x.device, dtype=pc.store_dtype)
+    bsz, h, wd, cin = x.shape
+    cout = int(w.shape[1])
+    out = torch.empty((bsz, h, wd, cout), device=x.device, dtype=STORE_DTYPES[store])
     if out.numel() == 0:
         return out
     from dynseg_torch.ops._build import load_library
 
     err = load_library().dynseg_int8_block_conv(
-        x.data_ptr(), pc.w.data_ptr(), pc.a.data_ptr(), pc.b.data_ptr(),
-        out.data_ptr(), bsz, h, wd, pc.cin, pc.cout, pc.k, pc.dilation,
-        same_pads(pc.k, pc.dilation)[0], pc.leaky_slope, STORES[out.dtype],
-        float(pc.inv_scale) if requant else 1.0, VARIANTS.index(variant),
-        torch.cuda.current_stream(x.device).cuda_stream)
+        x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(), out.data_ptr(),
+        bsz, h, wd, cin, cout, k, dilation, pad, leaky_slope, store, inv_scale,
+        variant, torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError(f"int8_block_conv launch failed: CUDA error {err}")
     launches += 1
-    variant_launches[variant] += 1
+    variant_launches[VARIANTS[variant]] += 1
     out_launches[str(out.dtype).removeprefix("torch.")] += 1
     return out
+
+
+def int8_block_conv_packed(x: torch.Tensor, pc: PackedConv,
+                           variant: Optional[str] = None) -> torch.Tensor:
+    """K5 on prepared operands: (B, H, W, Cin) int8 -> (B, H, W, Cout)
+    `pc.store_dtype`, through the registered op. CPU tensors take the
+    plain version; CUDA tensors launch `variant` (default: `variant_for`
+    the shape); anything else raises."""
+    if x.dtype != torch.int8 or x.dim() != 4 or x.shape[3] != pc.cin:
+        raise ValueError(f"x (B,H,W,{pc.cin}) int8 required, got "
+                         f"{tuple(x.shape)} {x.dtype}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise RuntimeError(f"int8_block_conv: no kernel for device {x.device}")
+    variant = variant or pc.variant
+    if variant != "dp4a" and pc.variant == "dp4a":
+        raise ValueError(f"variant {variant} needs Cin and Cout multiples of "
+                         f"16 and a pad under 128, got {pc.cin}, {pc.cout}, "
+                         f"{same_pads(pc.k, pc.dilation)[0]}")
+    return _op(x, pc.w, pc.a, pc.b, pc.k, pc.dilation,
+               same_pads(pc.k, pc.dilation)[0], pc.leaky_slope,
+               STORES[pc.store_dtype], _inv_arg(pc), VARIANTS.index(variant))
 
 
 def int8_block_conv(x: torch.Tensor, w: torch.Tensor, affine_a: torch.Tensor,

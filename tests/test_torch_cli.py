@@ -395,10 +395,9 @@ def test_command_line_without_a_card_exits_non_zero(tmp_path):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--operation", "export"], ["--operation", "serve"],
     ["--operation", "training", "--num_devices", "2"],
     ["--operation", "training", "--num_devices", "2", "--shard_tiles"],
-], ids=["export", "serve", "num_devices", "shard_tiles"])
+], ids=["num_devices", "shard_tiles"])
 def test_parts_not_ported_are_refused(extra, tmp_path):
     with pytest.raises(SystemExit, match="not ported"):
         cli.main([*extra, "--device", "cpu", "--output_path", str(tmp_path)])

@@ -37,7 +37,8 @@ def test_every_module_imports_without_the_jax_package():
         "import dynseg_torch",
         "names = [m.name for m in pkgutil.walk_packages(dynseg_torch.__path__, 'dynseg_torch.')",
         "         if not m.name.endswith('__main__')]",
-        "assert len(names) >= 25, names",
+        "assert len(names) >= 27, names",
+        "assert {'dynseg_torch.export', 'dynseg_torch.serve'} <= set(names), names",
         "for name in names:",
         "    __import__(name)",
         "from dynseg_torch.cli import main",
@@ -70,7 +71,7 @@ def test_no_source_line_imports_the_jax_package():
     files = [os.path.join(ROOT, "chip_smoke.py")]
     for base, _, names in os.walk(os.path.join(ROOT, "dynseg_torch")):
         files += [os.path.join(base, n) for n in names if n.endswith(".py")]
-    assert len(files) >= 26
+    assert len(files) >= 28
     bad = []
     for path in files:
         with open(path) as f:
@@ -92,7 +93,8 @@ def test_package_imports_no_jax():
     code = ("import sys, dynseg_torch, dynseg_torch.infer, dynseg_torch.ops.quant, "
             "dynseg_torch.bridge, dynseg_torch.train, dynseg_torch.cli, "
             "dynseg_torch.ops.gather, dynseg_torch.ops.pool, dynseg_torch.checkpoint, "
-            "dynseg_torch.ops.int8_probe_conv, dynseg_torch.probes.int8_kernel_probe; "
+            "dynseg_torch.ops.int8_probe_conv, dynseg_torch.probes.int8_kernel_probe, "
+            "dynseg_torch.export, dynseg_torch.serve; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax')); "
             "assert not bad, bad; "
             "assert 'dynseg_torch.ops._build' not in sys.modules")
