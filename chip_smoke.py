@@ -125,7 +125,42 @@ runs without them.
      are the server's own over the two requests (its "server stopped"
      line; it counts from 0 after its warm-up), and equal the engine's.
 
-Phases 12-15 run after phase 4, phase 16 after phase 8 and phase 17
+ 18. data parallelism (dynseg_torch.parallel), after phase 17: first K2
+     and K4 (fused) vs plain, bitwise, at a rank's half batch (50) and
+     K5 (wgmma) at a rank's window batches (half the window batch of c's
+     window config, at each of its scales; a rank's dense batch is
+     phase 2's 8 x 336^2); then
+     `python -m dynseg_torch --operation training --num_devices N`, N
+     one more than the visible cards, must exit non-zero with the
+     over-commit message; at the full width of phase 7 (batch 100, its
+     tiles), a. one rank in an NCCL group on cuda:0 takes three steps at
+     25 and 65 px and predicts a small tile, held to one device on the
+     same batches (every loss within 1e-5 relative; after the first
+     step params within 1e-6 and BN statistics within 1e-5; after the
+     third within the larger of those and twice that run's own float32
+     noise: the largest distance between one device's run and four
+     reruns on its batches with the rows in other orders; probabilities
+     1e-5); b. two ranks sharing cuda:0 over gloo take the same three
+     steps (50 patches a rank), then three --shard_tiles steps on their
+     own sampling, each held to one device on the same global batches at
+     the same limits (the shard run to the noise of its own batches),
+     with each rank's K2/K4 launches equal to its gathers and pool
+     backwards, all fused, and ms/step per scale beside one device's (the
+     ranks share one card: not a speed-up), and the all-reduces' share
+     of a step timed alone; c. the same two ranks, and a's one rank,
+     predict window int8 on phase 3's 1024^2 tile and dense int8 on its
+     2048^2 tile (weights centred as in phase 13), held to one device
+     outside a group at the default batch and, in window mode, to one
+     whose forwards take a rank's windows (half the window batch): labels
+     equal but at counted ties, probabilities within 1e-5, the int8
+     state_dict bitwise, each rank's K5 launches = 3 x its int8 forwards,
+     all wgmma; Mpx/s beside one device's at the default batch; then two
+     readings: one device at the default window batch against half of
+     it, and the same windows forwarded in a full, a half and a short
+     batch, with cuDNN on and off (what makes a forward depend on its
+     batch).
+
+Phases 12-15 run after phase 4, phase 16 after phase 8 and phases 17-18
 after phase 11, each beside the phase it is compared with.
 
 With --profile DIR, it also traces one warm call of each serving run and
@@ -226,6 +261,15 @@ TTA_TILE, BF16_PALLAS_STEPS = 512, 5
 # batches of the largest scale; samples per plain-version call.
 SERVE_K5_SHAPES = ((8, 1104), (64, 65), (128, 65))
 SERVE_K5_PLAIN_CHUNK = 2
+# Phase 18: the steps' scales, a rank's batch, and the row orders of one
+# device's reruns that measure its float32 noise.
+DP_SIZES = (25, 65, 25)
+DP_HALF_BATCH = TRAIN_BATCH // 2
+DP_REORDER_SEEDS = (9, 10, 11, 12)
+# A short window batch, as a scale's last batch was before it was padded.
+DP_SHORT_BATCH = 37
+# Where the ranks run: one card, NCCL for the world of one rank.
+DP_DEVICE, DP_ONE_BACKEND = "cuda:0", "nccl"
 
 
 def log(msg: str) -> None:
@@ -1116,13 +1160,13 @@ class _LivePredictor:
         return self.forward(torch.from_numpy(np.ascontiguousarray(x)).to(DEVICE))
 
 
-def check_k5_serve_shapes(int8_conv) -> float:
+def check_k5_serve_shapes(int8_conv, shapes=SERVE_K5_SHAPES, what="serve") -> float:
     """Phase 17, first: K5's serving variant (wgmma) vs plain, bitwise, at
     the shapes the serve path gives it (SERVE_K5_SHAPES), for each block
     with the requant of the int8 exit's route and block 5 with its
-    float32 store too. The data is made on the card from a seed; the
-    plain version runs SERVE_K5_PLAIN_CHUNK samples a call. Returns the
-    largest difference."""
+    float32 store too; phase 18 at a rank's shapes. The data is made on
+    the card from a seed; the plain version runs SERVE_K5_PLAIN_CHUNK
+    samples a call. Returns the largest difference."""
     gen = torch.Generator(device=DEVICE).manual_seed(17)
 
     def codes(shape, mean, std):
@@ -1140,7 +1184,7 @@ def check_k5_serve_shapes(int8_conv) -> float:
                                      out_scale=out_scale)
             if pc.variant != "wgmma":
                 raise SystemExit(f"K5 {name}: the serving block does not take wgmma")
-            for bsz, side in SERVE_K5_SHAPES:
+            for bsz, side in shapes:
                 x = torch.empty((bsz, side, side, cin), dtype=torch.int8, device=DEVICE)
                 for i in range(bsz):
                     x[i] = codes((side, side, cin), 10, 38)
@@ -1159,7 +1203,7 @@ def check_k5_serve_shapes(int8_conv) -> float:
                                            + got.numel() * got.element_size() + 8 * cout,
                                            INT8_PEAK)
                 store = str(pc.store_dtype).removeprefix("torch.")
-                log(f"K5 {name} at serve shape x({bsz},{side},{side},{cin}) -> {store} "
+                log(f"K5 {name} at {what} shape x({bsz},{side},{side},{cin}) -> {store} "
                     f"({got.numel()} elements): kernel == plain bitwise: "
                     f"{diff == 0}; {ms:.4f} ms, {bound / ms:.3f} of the bound "
                     f"{bound:.4f} ms ({bound_by})")
@@ -1664,6 +1708,342 @@ def run_bf16_training(gather, pool, f32_runs, card) -> None:
             f"{st['patches_per_s']:.1f}/s; {cols}")
 
 
+def check_dp_kernel_shapes(gather, pool, int8_conv) -> None:
+    """Phase 18, first: K2 and K4 vs plain, bitwise, at a rank's half
+    batch: K2 gathering from a rank's block of two tiles with local ids,
+    K4 (the fused variant the step takes) at 50 x s^2 x C; then K5 at a
+    rank's window batches: half the window batch of phase 18's window
+    int8 config, at each of its scales."""
+    rng = np.random.default_rng(18)
+    dev = torch.device(DEVICE)
+    b = DP_HALF_BATCH
+    images = torch.from_numpy(rng.integers(0, 256, (2, 600, 600, 3), dtype=np.uint8)).to(dev)
+    masks = torch.from_numpy(rng.integers(0, 2, (2, 600, 600), dtype=np.uint8)).to(dev)
+    mean = torch.tensor([120.0, 110.5, 99.25], device=dev)
+    std = torch.tensor([40.0, 37.3, 51.7], device=dev)
+    for s in (25, 65):
+        half = s // 2
+        pos = np.stack([rng.integers(0, 2, b), rng.integers(half, 600 - s + half + 1, b),
+                        rng.integers(half, 600 - s + half + 1, b)], 1).astype(np.int32)
+        args = (images, masks, mean, std, torch.from_numpy(pos).to(dev),
+                torch.from_numpy((np.arange(b) % 8).astype(np.int32)).to(dev))
+        gi, gl = gather.gather_batch(*args, s)
+        wi, wl = gather.gather_batch_ref(*args, s)
+        same = torch.equal(gi, wi) and torch.equal(gl, wl)
+        log(f"K2 gather at a rank's batch B={b} s={s}, local ids into 2 tiles: "
+            f"kernel == plain bitwise: {same}")
+        if not same:
+            raise SystemExit(f"K2 B={b} s={s}: kernel disagrees with plain")
+        for c in sorted(set(POOL_CHANNELS)):
+            shape = (b, s, s, c)
+            x = torch.round(torch.randn(shape, device=dev, generator=torch.Generator(
+                dev).manual_seed(s * c + 1)) * 16) / 16
+            y = pool.pool_forward(x.permute(0, 3, 1, 2), 3).permute(0, 2, 3, 1).contiguous()
+            g = torch.from_numpy(rng.normal(0, 1e-3, shape).astype(np.float32)).to(dev)
+            variant = pool.variant_for(shape, 3, x.data_ptr() % 16 == 0)
+            same = torch.equal(pool.pallas_pool_bwd(x, y, g, 3),
+                               pool.pallas_pool_bwd_ref(x, y, g, 3))
+            log(f"K4 pool bwd at a rank's batch {shape} ({variant}): kernel == plain "
+                f"bitwise: {same}")
+            if not same or variant != "fused":
+                raise SystemExit(f"K4 {shape}: {variant} kernel disagrees with plain "
+                                 f"or is not the fused variant")
+            del x, y, g
+    c_win = config("window", "int8")
+    check_k5_serve_shapes(int8_conv, [(c_win.infer.window_batch // 2, s)
+                                      for s in c_win.infer.scales], "a rank's window")
+    torch.cuda.empty_cache()
+
+
+def _dp_distance(a: dict, b: dict):
+    """(max|dparam|, max|dBN statistics|) between two state_dicts."""
+    dp = max(float(np.abs(a[k] - v).max()) for k, v in b.items()
+             if v.dtype == np.float32 and "running" not in k)
+    dbn = max(float(np.abs(a[k] - v).max()) for k, v in b.items() if "running" in k)
+    return dp, dbn
+
+
+def _dp_compare(what: str, got: dict, want: dict, floor) -> None:
+    """A rank's train_steps against one device's on the same batches: every
+    loss within 1e-5 relative; after the first step params within 1e-6 and
+    BN statistics within 1e-5; after the last, within the larger of those
+    and twice `floor`, `want`'s own float32 noise (`_dp_reordered`: the
+    same arithmetic summed in another order, which compounds over steps).
+    The distances are printed."""
+    rel = max(abs(a - b) / abs(b) for a, b in zip(got["losses"], want["losses"]))
+    dp1, dbn1 = _dp_distance(got["states"][0], want["states"][0])
+    dp, dbn = _dp_distance(got["state"], want["state"])
+    lim_p, lim_bn = max(1e-6, 2 * floor[0]), max(1e-5, 2 * floor[1])
+    log(f"  {what}: losses {[round(x, 6) for x in got['losses']]} vs one device's "
+        f"{[round(x, 6) for x in want['losses']]}: max rel {rel:.2e}; after step 1 "
+        f"max|dparam| {dp1:.2e}, max|dBN stats| {dbn1:.2e}; after step "
+        f"{len(got['losses'])} {dp:.2e} (limit {lim_p:.2e}), {dbn:.2e} (limit "
+        f"{lim_bn:.2e}; one device with its rows reordered: {floor[0]:.2e}, "
+        f"{floor[1]:.2e})")
+    if not (all(map(math.isfinite, got["losses"])) and rel <= 1e-5 and dp1 <= 1e-6
+            and dbn1 <= 1e-5 and dp <= lim_p and dbn <= lim_bn):
+        raise SystemExit(f"{what}: the ranks' step disagrees with one device's")
+
+
+def _dp_reordered(cfg, tiles, variables, base: dict) -> tuple:
+    """The float32 noise floor of one device's train_steps run `base`
+    (with its "batches"): the largest distance between it and its reruns
+    on the same batches with each batch's rows in another order, one for
+    each of DP_REORDER_SEEDS."""
+    from dynseg_torch.probes import dp_parity
+
+    worst = (0.0, 0.0)
+    for seed in DP_REORDER_SEEDS:
+        perm = np.random.default_rng(seed).permutation(len(base["batches"][0][0]))
+        again = dp_parity.train_steps(
+            cfg, tiles, variables, DP_SIZES,
+            [(p[perm], a[perm]) for p, a in base["batches"]], warm_up=True,
+            device=DEVICE)
+        worst = tuple(map(max, worst, _dp_distance(again["state"], base["state"])))
+    return worst
+
+
+def _dp_ms(res: dict) -> dict:
+    """Mean ms per step by scale over a train_steps run."""
+    by = collections.defaultdict(list)
+    for size, ms in zip(DP_SIZES, res["ms"]):
+        by[size].append(ms)
+    return {size: float(np.mean(v)) for size, v in sorted(by.items())}
+
+
+def _dp_check_launches(what: str, got: dict) -> None:
+    """A rank's K2/K4 launches against the gathers and pool backwards of
+    its steps, every K4 launch the fused variant."""
+    log(f"    K2 launches {got['k2']} (gathers {got['gathers']}), K4 launches "
+        f"{got['k4']} (pool backwards {got['pool_bwds']}, fused {got['k4_fused']})")
+    if (got["k2"], got["k4"], got["k4_fused"]) != (got["gathers"], got["pool_bwds"],
+                                                   got["pool_bwds"]):
+        raise SystemExit(f"{what}: K2/K4 launches do not match its steps")
+
+
+def _dp_check_k5(what: str, res: dict, int8: bool) -> None:
+    """A rank's K5 launches: 3 per int8 forward (none in float), all wgmma."""
+    if res["forwards"] == 0 or res["k5_wgmma"] != res["k5"] \
+            or res["k5"] != (3 * res["forwards"] if int8 else 0):
+        raise SystemExit(f"{what}: K5 launches do not match its forwards")
+
+
+def _dp_maps(got: dict, ref: dict) -> tuple:
+    """Two predict results' maps: (labels that differ, those of them not
+    at a tie of `ref`'s, `ref`'s ties, max|dprob|)."""
+    differ = away = ties = 0
+    dprob = 0.0
+    for lab, prob, lab1, prob1 in zip(got["labels"], got["probs"], ref["labels"],
+                                      ref["probs"], strict=True):
+        dprob = max(dprob, float(np.abs(prob - prob1).max()))
+        top2 = np.sort(prob1, axis=-1)[..., -2:]
+        tie = top2[..., 1] - top2[..., 0] < 1e-5
+        moved = lab != lab1
+        differ += int(moved.sum())
+        away += int((moved & ~tie).sum())
+        ties += int(tie.sum())
+    return differ, away, ties, dprob
+
+
+def _dp_predictions(what: str, ranks: list, refs: list, tiles, card: str,
+                    sharing: str = "2 ranks sharing one card") -> None:
+    """Phase 18: the ranks' maps against each of `refs`, (name, one device
+    outside a group): labels equal but at counted ties, probabilities
+    within 1e-5, the int8 state_dict bitwise; each rank's K5 launches = 3
+    x its forwards, all wgmma; its Mpx/s beside the last reference's."""
+    px = float(np.prod(tiles.valid_hw, axis=1).sum())
+    for r, res in enumerate(ranks):
+        for name, ref in refs:
+            differ, away, ties, dprob = _dp_maps(res, ref)
+            qsame = all(np.array_equal(res["qvars"][k], v)
+                        for k, v in (ref["qvars"] or {}).items())
+            log(f"  {what} rank {r} vs one device {name}: {differ} labels differ, "
+                f"{away} of them not at a tie ({ties} ties); max|dprob| {dprob:.2e}; "
+                f"int8 state_dict bitwise: {qsame}")
+            if away or dprob > 1e-5 or not qsame:
+                raise SystemExit(f"{what} rank {r}: labels, probabilities or int8 "
+                                 f"weights differ from one device {name}")
+        name, ref = refs[-1]
+        log(f"    {res['forwards']} forwards, K5 launches {res['k5']} (wgmma "
+            f"{res['k5_wgmma']}); {px / res['wall_s'] / 1e6:.3f} Mpx/s with {sharing} "
+            f"vs one device's {px / ref['wall_s'] / 1e6:.3f} {name} [{card}]")
+        _dp_check_k5(f"{what} rank {r}", res, ref["qvars"] is not None)
+
+
+def _dp_batch_reading(full: dict, half: dict, batch: int, card: str) -> None:
+    """Phase 18, a reading: one device's window int8 maps at window_batch
+    `batch` (`full`) against half of it (`half`)."""
+    differ, away, ties, dprob = _dp_maps(full, half)
+    log(f"  window int8, one device at window_batch {batch} vs {batch // 2}: max|dprob| "
+        f"{dprob:.2e}, {differ} labels differ, {away} of them not at a tie [{card}]")
+
+
+@torch.inference_mode()
+def _dp_cudnn_witness(cfg, tiles, weights, card: str) -> None:
+    """Phase 18, a reading: how one device's window probabilities depend on
+    the batch they are forwarded in. The same windows of the smallest
+    scale forwarded in a full window batch, in half of one, and the first
+    DP_SHORT_BATCH of them alone (a short batch, as an unpadded last batch
+    of a scale was): the largest difference from the full batch's. Float
+    with cuDNN on (every run's path) and off (torch's own convolution, one
+    sample at a time), int8 with cuDNN on (with it off the convolutions
+    return NCHW tensors, which K5 does not take)."""
+    from dynseg_torch.infer import Inferencer
+
+    b, s, m = cfg.infer.window_batch, min(cfg.infer.scales), DP_SHORT_BATCH
+    for quant, flags in (("none", (True, False)), ("int8", (True,))):
+        c = dataclasses.replace(cfg, infer=dataclasses.replace(cfg.infer, quant=quant))
+        inf = Inferencer(c, tiles, device=DEVICE)
+        v = inf.enable_quant({k: w.to(DEVICE) for k, w in weights.items()})
+        origins = np.array([(inf.pad + 8 * (i // 16), inf.pad + 8 * (i % 16))
+                            for i in range(b)], np.int64)
+        tile = inf._tile(0)
+        for on in flags:
+            with torch.backends.cudnn.flags(enabled=on, benchmark=False,
+                                            deterministic=False, allow_tf32=False):
+                full = inf._probs(v, tile, origins, s)
+                d_half = (full[:b // 2] - inf._probs(v, tile, origins[:b // 2], s)
+                          ).abs().max().item()
+                d_short = (full[:m] - inf._probs(v, tile, origins[:m], s)
+                           ).abs().max().item()
+            log(f"  {'int8' if quant == 'int8' else 'float'}, cuDNN {'on' if on else 'off'}:"
+                f" {s}^2 windows in a batch of {b // 2} vs of {b}: max|dprob| "
+                f"{d_half:.2e}; in a batch of {m} vs of {b}: {d_short:.2e} [{card}]")
+
+
+def run_data_parallel(gather, pool, int8_conv, card: str) -> dict:
+    """Phase 18: data parallelism over torch.distributed (see the module
+    docstring). Returns each rank's K2, K4 and K5 launches."""
+    from dynseg_torch import parallel
+    from dynseg_torch.bridge import init_variables_np
+    from dynseg_torch.data.datasets import load_synthetic
+    from dynseg_torch.probes import dp_parity
+    from dynseg_torch.train import Trainer
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    t_phase = time.perf_counter()
+    n_over = torch.cuda.device_count() + 1
+    refused = subprocess.Popen(
+        [sys.executable, "-m", "dynseg_torch", "--operation", "training",
+         "--num_devices", str(n_over), "--output_path", os.path.join(OUT_DIR, "dp_refused")],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=root)
+    check_dp_kernel_shapes(gather, pool, int8_conv)
+
+    def train_cfg(n, shard=False):
+        cfg = train_config("pallas", len(DP_SIZES), False,
+                           scales=tuple(sorted(set(DP_SIZES))))
+        return dataclasses.replace(cfg, train=dataclasses.replace(
+            cfg.train, num_devices=n, shard_tiles=shard))
+
+    tiles = load_synthetic(seed=0, num_tiles=4, size=TRAIN_TILE)[0]
+    variables = init_variables_np(train_cfg(1).model, num_input_bands=3, seed=0)
+    sampler = Trainer(train_cfg(1), tiles, device="cpu")
+    batches = [tuple(a[0] for a in sampler.global_batch_inputs(s)) for s in DP_SIZES]
+    del sampler
+    wt = {k: v.cpu() for k, v in seeded_weights(config("window", "none").model, 3).items()}
+    tiles1k = load_synthetic(seed=0, num_tiles=2, size=WINDOW_TILE)[1]
+    tiles2k = load_synthetic(seed=1, num_tiles=2, size=DENSE_TILE)[1]
+    small = load_synthetic(seed=2, num_tiles=2, size=96)[1]
+    w_win = {k: v.cpu() for k, v in centred_weights(
+        {k: v.to(DEVICE) for k, v in wt.items()}, "window", tiles1k).items()}
+    w_dense = {k: v.cpu() for k, v in centred_weights(
+        {k: v.to(DEVICE) for k, v in wt.items()}, "dense", tiles2k).items()}
+    preds = [("window float, 96^2", config("window", "none"), small, wt),
+             ("window int8, 1024^2", config("window", "int8"), tiles1k, w_win),
+             ("dense int8, 2048^2", config("dense", "int8"), tiles2k, w_dense)]
+    # c's references, one device outside a group: at the default batch, and
+    # with forwards that take a rank's windows (a window batch of half the
+    # ranks', its last batch padded to full size as theirs is); a rank's
+    # dense blocks are the default's (the ranks' groups of 2 x 8 are its
+    # groups of 8).
+    (_, c_win, t_win, w_win), (_, c_dense, t_dense, w_dense) = preds[1:]
+    half = dataclasses.replace(c_win, infer=dataclasses.replace(
+        c_win.infer, window_batch=c_win.infer.window_batch // 2))
+    torch.cuda.empty_cache()
+    t_ref = time.perf_counter()
+    one = dp_parity.train_steps(train_cfg(1), tiles, variables, DP_SIZES, batches,
+                                warm_up=True, device=DEVICE)
+    one_pred = [dp_parity.predict(c, t, w, DEVICE) for _, c, t, w in preds]
+    one_half = dp_parity.predict(half, t_win, w_win, DEVICE)
+    t_ref = time.perf_counter() - t_ref
+    torch.cuda.empty_cache()
+
+    # a. One rank in an NCCL group; its int8 runs take c's rank shapes.
+    t0 = time.perf_counter()
+    nccl = parallel.spawn(dp_parity.run_many, 1, [DP_DEVICE], DP_ONE_BACKEND, args=([
+        (dp_parity.train_steps, (train_cfg(1), tiles, variables, DP_SIZES, batches),
+         {"warm_up": True}),
+        (dp_parity.predict, preds[0][1:]),
+        (dp_parity.predict, (half, t_win, w_win)),
+        (dp_parity.predict, (c_dense, t_dense, w_dense))],))[0]
+    log(f"data parallel a: one rank in an NCCL group on cuda:0, {len(DP_SIZES)} "
+        f"steps at {DP_SIZES} px, batch {TRAIN_BATCH}, full width, and "
+        f"{preds[0][0]}, window int8 at half the window batch and dense int8 "
+        f"(launch and run {time.perf_counter() - t0:.1f} s) [{card}]")
+    floor = _dp_reordered(train_cfg(1), tiles, variables, one)
+    _dp_compare("NCCL world size 1", nccl[0], one, floor)
+    _dp_check_launches("NCCL world size 1", nccl[0])
+    _dp_predictions(f"NCCL world size 1, {preds[0][0]}", [nccl[1]],
+                    [("at the default batch", one_pred[0])], small, card, "one rank")
+
+    # b, c. Two ranks sharing cuda:0 over gloo.
+    t0 = time.perf_counter()
+    ranks = parallel.spawn(dp_parity.run_many, 2, [DP_DEVICE] * 2, "gloo", args=([
+        (dp_parity.train_steps, (train_cfg(2), tiles, variables, DP_SIZES, batches),
+         {"warm_up": True}),
+        (dp_parity.train_steps, (train_cfg(2, True), tiles, variables, DP_SIZES),
+         {"warm_up": True}),
+        (dp_parity.train_steps, (train_cfg(2), tiles, variables, DP_SIZES, batches),
+         {"collective_stats": True}),
+        *[(dp_parity.predict, p[1:]) for p in preds[1:]]],))
+    log(f"data parallel b: two ranks sharing cuda:0 over gloo, {DP_HALF_BATCH} "
+        f"patches a rank, replicated tiles then --shard_tiles (launch and run "
+        f"{time.perf_counter() - t0:.1f} s; one device's runs {t_ref:.1f} s) [{card}]")
+    one_shard = dp_parity.train_steps(train_cfg(1), tiles, variables, DP_SIZES,
+                                      ranks[0][1]["batches"], warm_up=True, device=DEVICE)
+    shard_floor = _dp_reordered(train_cfg(1), tiles, variables, one_shard)
+    for r, res in enumerate(ranks):
+        for what, got, want, noise in (("replicated", res[0], one, floor),
+                                       ("--shard_tiles", res[1], one_shard, shard_floor)):
+            _dp_compare(f"rank {r} {what}", got, want, noise)
+            _dp_check_launches(f"rank {r} {what}", got)
+    if not all(np.array_equal(ranks[0][0]["state"][k], v)
+               for k, v in ranks[1][0]["state"].items()):
+        raise SystemExit("the two ranks' states differ")
+    timed = ranks[0][2]
+    log(f"  ms/step by scale, 2 ranks sharing one card (not a speed-up measurement) "
+        f"vs one device, the same global batch; the ranks' "
+        f"{timed['collective_calls'] // len(timed['ms'])} all-reduces a step timed "
+        f"alone (the card synchronised and the ranks met before each):")
+    two_ms, one_ms = _dp_ms(ranks[0][0]), _dp_ms(one)
+    coll = _dp_ms({"ms": timed["collective_ms"]})
+    for size in two_ms:
+        log(f"    scale {size}: 2 ranks {two_ms[size]:.3f} ms, 1 device {one_ms[size]:.3f} "
+            f"ms; all-reduces {coll[size]:.3f} ms, {coll[size] / two_ms[size]:.3f} of "
+            f"the ranks' step")
+    refs = ([("at a rank's batch (window_batch "
+              f"{half.infer.window_batch})", one_half),
+             ("at the default batch (window_batch "
+              f"{c_win.infer.window_batch})", one_pred[1])],
+            [("at the default batch (a rank's groups of 8 blocks)", one_pred[2])])
+    for (what, _, t, _), ref, i, in_nccl in zip(preds[1:], refs, (3, 4), nccl[2:]):
+        _dp_predictions(f"NCCL world size 1, {what}", [in_nccl], ref, t, card, "one rank")
+        _dp_predictions(what, [r[i] for r in ranks], ref, t, card)
+    _dp_batch_reading(one_pred[1], one_half, c_win.infer.window_batch, card)
+    _dp_cudnn_witness(c_win, t_win, w_win, card)
+
+    # d. More ranks than cards.
+    out, err = refused.communicate(timeout=120)
+    msg = f"--num_devices {n_over} requested but only {n_over - 1} CUDA device(s) are visible"
+    log(f"data parallel d: --num_devices {n_over} on {n_over - 1} card(s): exit "
+        f"{refused.returncode}, {err.strip().splitlines()[-1] if err.strip() else ''!r}")
+    if refused.returncode == 0 or msg not in err or "TOTAL" in out:
+        raise SystemExit("--num_devices past the visible cards was not refused")
+    log(f"phase 18 took {time.perf_counter() - t_phase:.1f} s")
+    return {"k2": [r[0]["k2"] for r in ranks], "k4": [r[0]["k4"] for r in ranks],
+            "k5": [r[3]["k5"] + r[4]["k5"] for r in ranks]}
+
+
 def kernel_class(event: dict) -> str:
     """A device event's class in the serving summaries."""
     if event["cat"] != "kernel":
@@ -1821,15 +2201,20 @@ def main() -> int:
     served = run_export_serve(int8_conv, card)
     k5["serve_launches"] = served["serve_launches"]
     k5["max_abs_err"] = max(k5["max_abs_err"], served["max_abs_err"])
+    dp = run_data_parallel(gather, pool, int8_conv, card)
+    k5["dp_rank_launches"], k2["dp_rank_launches"], k4["dp_rank_launches"] = (
+        dp["k5"], dp["k2"], dp["k4"])
 
     def entry(name, source, replaces, k):
         # library_ms: no single PyTorch call computes any of the four
         # functions (no CUDA int8 conv; ATen's max-pool backward routes a
         # tie to the first max; the gather fuses crop, normalise and labels).
         # K5 adds its bf16 store's time, bound and launches (phases 12-13)
-        # and its launches in the HTTP server over phase 17's requests.
+        # and its launches in the HTTP server over phase 17's requests; K5,
+        # K2 and K4 each rank's launches in phase 18.
         extra = {key: k[key] for key in ("bf16_out_ms", "bf16_out_bound_ms",
-                                         "bf16_out_launches", "serve_launches")
+                                         "bf16_out_launches", "serve_launches",
+                                         "dp_rank_launches")
                  if key in k}
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": k["launches"],

@@ -18,6 +18,11 @@ a run stopped mid-save leaves the last good step. Loading uses
 torch.load(weights_only=True). A step directory that holds no state.pt is
 the reference's orbax checkpoint: the port refuses it and names
 `import_reference_state`, which converts one.
+
+Under data parallelism (`dynseg_torch.parallel`) every rank holds the
+same state: rank 0 alone writes, and every rank restores. The files
+carry no trace of the ranks, so a checkpoint written at N ranks restores
+at 1 and the other way round.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from dynseg_torch import parallel
 from dynseg_torch.sched.scheduler import ScaleScheduler
 from dynseg_torch.train import (TrainState, Trainer, checkpoint_dict,
                                 init_state_template, load_checkpoint_dict)
@@ -96,10 +102,15 @@ class _Steps:
 
 
 class CheckpointManager:
+    """Saves (on rank 0; the other ranks' saves write nothing and return
+    False) and restores (on every rank)."""
+
     def __init__(self, output_path: str, max_to_keep: int = 3):
         self.dir = os.path.abspath(os.path.join(output_path, "checkpoints"))
         self.max_to_keep = max_to_keep
-        os.makedirs(self.dir, exist_ok=True)
+        self.writer = parallel.is_main()
+        if self.writer:
+            os.makedirs(self.dir, exist_ok=True)
         self._main = _Steps(self.dir, max_to_keep)
         self._best = _Steps(os.path.join(self.dir, "best"), 1)
 
@@ -109,6 +120,8 @@ class CheckpointManager:
         steps <= the old run's latest, and a stale best.json/best/ would
         gate --keep_best against a metric the new run never produced.
         Returns True if state was removed; the caller logs it."""
+        if not self.writer:
+            return False
         had_best = (self.best_record() is not None
                     or os.path.isdir(self._best.root))
         if self.latest_step() is None and not had_best:
@@ -118,12 +131,16 @@ class CheckpointManager:
         return True
 
     def save(self, it: int, state: TrainState, scheduler: ScaleScheduler) -> bool:
+        if not self.writer:
+            return False
         return self._main.save(it, checkpoint_dict(state), scheduler.state_dict())
 
     def save_stats(self, stats: dict) -> None:
         """The sidecar predict and testing read instead of the training
         dataset: normalisation statistics, input/output dims and the
         architecture knobs (the reference's schema)."""
+        if not self.writer:
+            return
         with open(os.path.join(self.dir, "stats.json"), "w") as f:
             json.dump(_jsonable(stats), f, indent=2)
 
@@ -151,6 +168,8 @@ class CheckpointManager:
                   scheduler: ScaleScheduler) -> bool:
         """Keep the single checkpoint with the highest validation metric
         under checkpoints/best/. Returns True if this one became the best."""
+        if not self.writer:
+            return False
         rec = self.best_record()
         if rec is not None and float(metric) <= float(rec["metric"]):
             return False

@@ -28,8 +28,15 @@ is visible the run stops with a message instead of falling back to the CPU.
 training, testing and predict, float or int8; --hbm_budget_gb (GiB) keeps
 a larger test set on the host and uploads one tile a prediction.
 
-Not ported, and refused with a message: --num_devices > 1,
---shard_tiles. Knobs of the reference's XLA programs
+--num_devices N (N > 1) runs training (its final scoring included) and
+testing/validate_test data-parallel, as the reference runs them on its
+mesh: the command spawns N ranks (`dynseg_torch.parallel`), rank r on
+cuda:r over NCCL, or N CPU ranks over gloo under --device cpu; more ranks
+than visible cards exit non-zero before any rank starts. --shard_tiles
+splits the training tiles across the ranks. The other operations run on
+one device, as the reference's do. Rank 0 alone logs and writes.
+
+Knobs of the reference's XLA programs
 that change no result have no effect here: --scan_chunk,
 --dense_scan_chunk, --quant_conv (the int8 blocks always run K5).
 --window_fold off is accepted: the port's one window accumulator gives
@@ -42,7 +49,6 @@ copies here, each held equal to its original by the tests.
 from __future__ import annotations
 
 import argparse
-import contextlib
 import dataclasses
 import json
 import os
@@ -158,9 +164,12 @@ def build_argparser() -> argparse.ArgumentParser:
                         "final and preemption checkpoints still write)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--num_devices", type=int, default=1,
-                   help="data-parallel devices; the port runs on one")
+                   help="data-parallel ranks for training and testing: rank r "
+                        "on cuda:r (NCCL), or CPU ranks (gloo) under --device "
+                        "cpu")
     p.add_argument("--shard_tiles", action="store_true",
-                   help="shard training tiles across devices (not ported)")
+                   help="shard training tiles across the ranks instead of "
+                        "replicating them")
     p.add_argument("--steps_per_call", type=int, default=1,
                    help="optimizer steps per train_step call")
     p.add_argument("--metric_fetch_depth", type=int, default=1,
@@ -681,7 +690,9 @@ def run_training(cfg: Config, log=print, keep_best: bool = False, *,
     cfg.train.output_path, then score the test tiles with the weights that
     would be served. Returns validate_test's scores plus "train_steps",
     the per-scale step times of the loop (Trainer.step_stats); a run
-    stopped by SIGTERM/SIGINT returns {"preempted": True, "iteration"}."""
+    stopped by SIGTERM/SIGINT returns {"preempted": True, "iteration"}.
+    In a data-parallel group every rank calls it; rank 0 alone writes."""
+    from dynseg_torch import parallel
     from dynseg_torch.bridge import torch_to_flax
     from dynseg_torch.checkpoint import CheckpointManager
     from dynseg_torch.data.sampler import BalancedPatchSampler
@@ -705,6 +716,7 @@ def run_training(cfg: Config, log=print, keep_best: bool = False, *,
             "--output_path (a fresh run cannot extend them; pass --resume "
             "to continue the previous run instead)")
     new_stats = _sidecar(cfg, train_tiles)
+    parallel.barrier()  # rank 0's reset is done before any rank reads
 
     start_iter = 0
     if cfg.train.resume and ckpt.latest_step() is not None:
@@ -719,6 +731,7 @@ def run_training(cfg: Config, log=print, keep_best: bool = False, *,
         log(f"resumed from iteration {start_iter}")
     else:
         state = trainer.init_state(cfg.train.seed)
+    parallel.barrier()  # every rank has read the previous run's files
     ckpt.save_stats(new_stats)
 
     log(f"training on {trainer.device}; warming up one step per scale...")
@@ -766,8 +779,9 @@ def run_training(cfg: Config, log=print, keep_best: bool = False, *,
         ckpt.save_stats(new_stats)
     variables = _serving_variables(cfg, state, new_stats, None, log)
     scores = validate_test(cfg, variables, test_tiles, trainer.device, log=log)
-    _save_maps(cfg, scores, test_tiles)
-    _write_scores(cfg, scores)
+    if parallel.is_main():
+        _save_maps(cfg, scores, test_tiles)
+        _write_scores(cfg, scores)
     scores["train_steps"] = trainer.step_stats()
     return scores
 
@@ -785,12 +799,19 @@ def run_testing(cfg: Config, log=print, scales_from_scheduler: int = 0,
                 device) -> dict:
     """Restore the checkpoint in cfg.train.output_path onto `device` and
     score the test tiles, normalised with the training statistics of the
-    stats sidecar."""
+    stats sidecar. In a data-parallel group every rank calls it; rank 0
+    alone writes."""
+    from dynseg_torch import parallel
     from dynseg_torch.checkpoint import CheckpointManager
     from dynseg_torch.infer import validate_test
     from dynseg_torch.sched.scheduler import ScaleScheduler
     from dynseg_torch.train import Trainer, init_state_template
 
+    if cfg.train.num_devices != parallel.world().size:
+        raise ValueError(
+            f"num_devices {cfg.train.num_devices} but this process is one of "
+            f"{parallel.world().size} rank(s): launch the ranks with "
+            f"python -m dynseg_torch --num_devices N")
     scheduler = ScaleScheduler(cfg.sched, seed=cfg.train.seed)
     ckpt = CheckpointManager(cfg.train.output_path)
     stats = ckpt.load_stats()
@@ -826,8 +847,9 @@ def run_testing(cfg: Config, log=print, scales_from_scheduler: int = 0,
                                    from_best=use_best)
     scores = validate_test(cfg, variables, test_tiles, device, scales=scales,
                            log=log)
-    _save_maps(cfg, scores, test_tiles)
-    _write_scores(cfg, scores, scales=scales)
+    if parallel.is_main():
+        _save_maps(cfg, scores, test_tiles)
+        _write_scores(cfg, scores, scales=scales)
     return scores
 
 
@@ -1051,31 +1073,33 @@ def run_info(cfg: Config, log=print, use_best: bool = False) -> dict:
     return info
 
 
-def _refuse_unported(args: argparse.Namespace) -> None:
-    """Stop, with a message naming the missing part, on a flag whose part
-    is not ported."""
-    if args.num_devices > 1 or args.shard_tiles:
-        raise SystemExit("dynseg_torch: not ported yet: --num_devices > 1 / "
-                         "--shard_tiles (data parallelism; the port runs on "
-                         "one device)")
+# The operations that --num_devices N runs on N ranks, as the reference
+# runs them on its mesh; the others run on one device.
+DATA_PARALLEL_OPERATIONS = ("training", "testing", "validate_test")
 
 
-@contextlib.contextmanager
-def _profile(path: str):
-    """--profile_dir: a torch.profiler trace of the run, as chrome JSON."""
-    if not path:
-        yield
-        return
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+def _launch_ranks(args: argparse.Namespace, argv: List[str]) -> int:
+    """Run this command on --num_devices ranks (`parallel.spawn`): rank r
+    on cuda:r over NCCL, or CPU ranks over gloo. Exits non-zero before
+    any rank starts when the cards are fewer than the ranks, and when a
+    rank fails (the others are stopped)."""
+    from dynseg_torch import parallel
 
-    acts = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        acts.append(ProfilerActivity.CUDA)
-    with profile(activities=acts) as prof:
-        yield
-    os.makedirs(path, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(path, "trace.json"))
+    n = args.num_devices
+    try:
+        devices = parallel.check_devices(n, args.device)
+    except ValueError as e:
+        raise SystemExit(f"dynseg_torch: {e}") from None
+    threads = None
+    if devices[0] == "cpu":
+        threads = max(1, (os.cpu_count() or 1) // n)
+    try:
+        # Each rank runs this command's `main`, which sees the group.
+        parallel.spawn(main, n, devices, args=(argv,), threads=threads)
+    except Exception as e:  # a rank failed: its error, and a non-zero exit
+        raise SystemExit(f"dynseg_torch: a rank of --num_devices {n} "
+                         f"failed: {e}") from None
+    return 0
 
 
 def _launch_counts() -> str:
@@ -1092,9 +1116,15 @@ def _launch_counts() -> str:
 
 
 def main(argv: Optional[List[str]] = None) -> int:
+    from dynseg_torch import parallel
+    from dynseg_torch.utils.profiling import trace
+
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = build_argparser().parse_args(argv)
-    _refuse_unported(args)
     cfg = config_from_args(args)
+    if (args.num_devices > 1 and args.operation in DATA_PARALLEL_OPERATIONS
+            and not parallel.grouped()):
+        return _launch_ranks(args, argv)
     if args.operation == "check_data":
         # Host-only pre-flight: no device; non-zero exit on a bad dump.
         from dynseg_torch.data.check import check_data
@@ -1106,7 +1136,9 @@ def main(argv: Optional[List[str]] = None) -> int:
             max_scale=max(cfg.sched.values))
         return 0 if report["ok"] else 1
     device = None
-    if args.operation != "info":
+    if parallel.grouped():
+        device = parallel.world().device
+    elif args.operation != "info":
         from dynseg_torch.train import resolve_device
 
         try:
@@ -1121,7 +1153,7 @@ def main(argv: Optional[List[str]] = None) -> int:
                    "accumulator (F.fold), whose counts equal the legacy "
                    "accumulator's bitwise")
     t0 = time.time()
-    with _profile(args.profile_dir):
+    with trace(args.profile_dir):
         if args.operation == "training":
             run_training(cfg, log=logger, keep_best=args.keep_best,
                          device=device)

@@ -21,7 +21,18 @@ The packed tile set stays resident on the device while it fits
 cfg.infer.hbm_budget_gb; past it, it stays on the host and each predict
 uploads its one padded tile (`_tile`). Tiles, probability and label maps
 keep the reference's NHWC layout and dtypes. The device is the caller's
-(`train.resolve_device`). Not ported yet: the device mesh.
+(`train.resolve_device`).
+
+Under a data-parallel group (`dynseg_torch.parallel`, the reference's
+mesh) the forwards split across the ranks: a window batch holds a
+multiple of n windows and each rank forwards its B/n of them; dense mode
+groups n x block_batch blocks and each rank forwards block_batch. As in
+the reference, with one device too, a short last batch or group is
+padded to that size. The probabilities are gathered exactly
+(`parallel.gather_rows`), and the overlap-add or overwrite then runs
+unchanged on every rank, as the reference's runs replicated. int8 calibration is replicated too, so the
+quantized state_dict is the single-device one on every rank. Only rank 0
+logs in `validate_test`.
 """
 
 from __future__ import annotations
@@ -35,6 +46,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from dynseg_torch import parallel
 from dynseg_torch.config import Config
 from dynseg_torch.data.tiles import (TileSet, fill_padded_context,
                                      mirror_pad, storage_dtype)
@@ -75,7 +87,8 @@ class Inferencer:
     held on `device`. Predict methods take the port's state_dict
     (`bridge.flax_to_torch`) on the same device."""
 
-    def __init__(self, cfg: Config, tiles: TileSet, device):
+    def __init__(self, cfg: Config, tiles: TileSet, device,
+                 world: Optional[parallel.World] = None):
         # cuDNN runs float32 convs in TF32 by default; TF32 keeps ~3
         # decimal digits and would move the calibrated activation ranges
         # and the probabilities away from the float32 reference.
@@ -83,6 +96,7 @@ class Inferencer:
         torch.backends.cuda.matmul.allow_tf32 = False
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.world = parallel.world() if world is None else world
         self.model = build_model(cfg.model, tiles.num_bands).to(self.device)
         self._apply = self._float_apply
         self.scales = [int(s) for s in cfg.infer.scales]
@@ -164,6 +178,27 @@ class Inferencer:
         x = (tile[rows, cols].float() - self.mean) / self.std
         return torch.softmax(self._apply(variables, x).float(), dim=-1)
 
+    def _window_batch(self) -> int:
+        """Windows per forward batch: window_batch, rounded to a multiple of
+        the ranks under a group (at least one window each)."""
+        b, n = int(self.cfg.infer.window_batch), self.world.size
+        return max(n, b // n * n)
+
+    def _split_probs(self, variables, tile: torch.Tensor, origins: np.ndarray,
+                     size: int, full: int) -> torch.Tensor:
+        """`_probs` of `origins`: the origins are padded to `full` (a
+        multiple of the ranks, at least len(origins)) with copies of the
+        last, as the reference pads a batch to its fixed size, so that every
+        forward of a scale has one batch size; under a group each rank
+        forwards its equal slice, and every rank gets all the
+        probabilities, bitwise (`parallel.gather_rows`)."""
+        m = len(origins)
+        padded = np.concatenate([origins, np.repeat(origins[-1:], full - m, 0)])
+        bl = full // self.world.size
+        r = self.world.rank
+        local = self._probs(variables, tile, padded[r * bl:(r + 1) * bl], size)
+        return parallel.gather_rows(local)[:m]
+
     def _source(self, tile_idx: int, override):
         """(device tile, h, w, Hp, Wp): the padded tile to predict, its
         valid extent and its padded extent."""
@@ -181,11 +216,11 @@ class Inferencer:
               tails: Sequence[Tuple[int, int]]) -> None:
         """Add the windows rows_u x cols_u (a uniform-stride grid) to prob
         and cnt with one `F.fold`, then `tails` one by one."""
-        B = self.cfg.infer.window_batch
+        B = self._window_batch()
         bulk = [(r, c) for r in rows_u for c in cols_u]
         origins = np.array(bulk + list(tails), np.int64).reshape(-1, 2)
         probs = torch.cat([
-            self._probs(variables, tile, origins[i:i + B], s)
+            self._split_probs(variables, tile, origins[i:i + B], s, B)
             for i in range(0, len(origins), B)])
         self._collected(probs)
         nbu = len(bulk)
@@ -220,7 +255,7 @@ class Inferencer:
         prob = torch.zeros((Hp, Wp, self.nc), dtype=torch.float32,
                            device=self.device)
         cnt = torch.zeros((Hp, Wp), dtype=torch.float32, device=self.device)
-        B = self.cfg.infer.window_batch
+        B = self._window_batch()
         cap = float(os.environ.get("DYNSEG_FOLD_MEM_GB", "2.0")) * 1e9
         self.fold_peak_bytes = 0
         for s in scales:
@@ -278,15 +313,20 @@ class Inferencer:
 
         starts = np.array(
             [(r, c) for r in starts_1d(h) for c in starts_1d(w)], np.int64)
+        # Groups of D = n x block_batch blocks (the reference's auto batch:
+        # 8 a rank where the tile has 8 blocks a rank, else an even share);
+        # each rank forwards block_batch of them.
+        n = self.world.size
         bb = int(self.cfg.infer.dense_block_batch)
         if bb <= 0:
-            bb = 8 if len(starts) >= 8 else len(starts)
+            bb = 8 if len(starts) >= 8 * n else max(1, -(-len(starts) // n))
+        D = n * bb
         ext = block_eff + 2 * halo
         prob = torch.zeros((Hp, Wp, self.nc), dtype=torch.float32,
                            device=self.device)
-        for lo in range(0, len(starts), bb):
-            group = starts[lo:lo + bb]
-            probs = self._probs(variables, tile, group - halo, ext)
+        for lo in range(0, len(starts), D):
+            group = starts[lo:lo + D]
+            probs = self._split_probs(variables, tile, group - halo, ext, D)
             centers = probs[:, halo:halo + block_eff, halo:halo + block_eff]
             # Overlapping blocks recompute the same values: overwrite.
             for (r, c), p in zip(group, centers):
@@ -400,6 +440,10 @@ class Inferencer:
                             return_probs=return_probs)
 
 
+def _quiet(*_args, **_kw) -> None:
+    pass
+
+
 def validate_test(
     cfg: Config,
     variables: Dict[str, torch.Tensor],
@@ -412,7 +456,10 @@ def validate_test(
     per-class F1 / confusion, plus the per-tile label maps, like dynseg's
     validate_test. `variables` is the port's float state_dict (moved to
     `device` where it lies elsewhere); `scales` overrides the inference
-    scales (the scheduler's top-K)."""
+    scales (the scheduler's top-K). Under a data-parallel group every rank runs
+    the forwards of its share and scores the same maps; only rank 0 logs."""
+    if not parallel.is_main():
+        log = _quiet
     inf = Inferencer(cfg, test_tiles, device=device)
     device = inf.device
     variables = {k: v.to(device) for k, v in variables.items()}

@@ -29,26 +29,41 @@ def confusion_matrix(preds: torch.Tensor, labels: torch.Tensor,
         num_classes, num_classes)
 
 
+def accuracy_counts(logits: torch.Tensor, labels: torch.Tensor):
+    """(correct, valid) pixel counts of a batch, int64 scalars."""
+    valid = labels != IGNORE_LABEL
+    return ((logits.argmax(-1) == labels) & valid).sum(), valid.sum()
+
+
 def batch_accuracy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Per-pixel accuracy over the valid pixels of a batch (the scheduler's
     'acc' signal), a float32 scalar tensor; 0 when no pixel is valid."""
-    valid = labels != IGNORE_LABEL
-    correct = ((logits.argmax(-1) == labels) & valid).sum()
-    return (correct / valid.sum().clamp(min=1)).float()
+    correct, valid = accuracy_counts(logits, labels)
+    return (correct / valid.clamp(min=1)).float()
+
+
+def recall_counts(logits: torch.Tensor, labels: torch.Tensor, num_classes: int):
+    """(hits, total) per class over the valid pixels, int64 (num_classes,)."""
+    valid = (labels != IGNORE_LABEL).reshape(-1)
+    labs = labels.reshape(-1)[valid].long()
+    hit = (logits.argmax(-1).reshape(-1)[valid] == labs)
+    total = torch.bincount(labs, minlength=num_classes)[:num_classes]
+    hits = torch.bincount(labs[hit], minlength=num_classes)[:num_classes]
+    return hits, total
+
+
+def balanced_from_counts(hits: torch.Tensor, total: torch.Tensor) -> torch.Tensor:
+    """Mean recall over the classes with total > 0, a float32 scalar."""
+    present = total > 0
+    recall = torch.where(present, hits / total.clamp(min=1), 0.0)
+    return (recall.sum() / present.sum().clamp(min=1)).float()
 
 
 def balanced_batch_accuracy(logits: torch.Tensor, labels: torch.Tensor,
                             num_classes: int) -> torch.Tensor:
     """Mean per-class recall over the classes present in the batch (the
     scheduler's 'balanced_acc' signal), a float32 scalar tensor in [0, 1]."""
-    valid = (labels != IGNORE_LABEL).reshape(-1)
-    labs = labels.reshape(-1)[valid].long()
-    hit = (logits.argmax(-1).reshape(-1)[valid] == labs)
-    total = torch.bincount(labs, minlength=num_classes)[:num_classes]
-    hits = torch.bincount(labs[hit], minlength=num_classes)[:num_classes]
-    present = total > 0
-    recall = torch.where(present, hits / total.clamp(min=1), 0.0)
-    return (recall.sum() / present.sum().clamp(min=1)).float()
+    return balanced_from_counts(*recall_counts(logits, labels, num_classes))
 
 
 def scores_from_confusion(cm: np.ndarray) -> Dict[str, object]:

@@ -15,6 +15,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from dynseg_torch import parallel
 from dynseg_torch.ops.pool import max_pool_s1, pool_forward
 
 
@@ -33,7 +34,13 @@ class BatchNorm(nn.Module):
     A bfloat16 input is normalised as flax's `_normalize` does it with
     dtype=bfloat16: float32 statistics (and float32 running statistics in
     eval mode) promote the arithmetic to float32, and the result is cast
-    to bfloat16 once."""
+    to bfloat16 once.
+
+    Under a data-parallel group (`dynseg_torch.parallel`) the train-mode
+    statistics are the global batch's, as the reference's are under its
+    mesh: one differentiable all-reduce of [sum x, sum x^2, count] per
+    layer, then the same recipe. torch's SyncBatchNorm would merge the
+    ranks' variances by Welford and update with the unbiased variance."""
 
     def __init__(self, features: int, momentum: float = 0.9, eps: float = 1e-5):
         super().__init__()
@@ -53,8 +60,16 @@ class BatchNorm(nn.Module):
                                 self.weight, self.bias, False, 0.0, self.eps)
         dims = (0, 2, 3)
         xf = x.float()
-        mean = xf.mean(dims)
-        var = torch.clamp((xf * xf).mean(dims) - mean * mean, min=0.0)
+        if parallel.grouped():
+            n = float(xf.numel() // xf.shape[1])
+            sums = parallel.all_reduce_sum(torch.cat([
+                xf.sum(dims), (xf * xf).sum(dims), xf.new_full((1,), n)]))
+            c = xf.shape[1]
+            mean = sums[:c] / sums[-1]
+            var = torch.clamp(sums[c:2 * c] / sums[-1] - mean * mean, min=0.0)
+        else:
+            mean = xf.mean(dims)
+            var = torch.clamp((xf * xf).mean(dims) - mean * mean, min=0.0)
         with torch.no_grad():
             m = self.momentum
             self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)

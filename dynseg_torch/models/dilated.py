@@ -16,6 +16,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
+from dynseg_torch import parallel
 from dynseg_torch.config import ModelConfig
 from dynseg_torch.models.blocks import DilatedConvBlock, ScoreHead
 
@@ -98,7 +99,11 @@ class _Dropout(nn.Module):
         if not self.training or self.rate <= 0:
             return x
         keep = 1.0 - self.rate
-        u = torch.rand(x.shape, generator=generator, device=x.device)
+        # The global batch's mask from a generator seeded alike on every
+        # rank; this rank keeps its rows.
+        w, b = parallel.world(), x.shape[0]
+        u = torch.rand((w.size * b,) + tuple(x.shape[1:]), generator=generator,
+                       device=x.device)[w.rank * b:(w.rank + 1) * b]
         return torch.where(u < keep, x / keep, torch.zeros_like(x))
 
 

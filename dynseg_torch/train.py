@@ -17,8 +17,19 @@ momentum SGD updates the params:
 
 PyTorch runs eagerly, so the reference's per-bucket jit becomes one
 warm-up step per scale (`compile_buckets`: cuDNN picks its algorithms on
-a shape's first call). Only one device is ported: `num_devices > 1` and
-`shard_tiles` raise. The fp32 convolutions run without TF32.
+a shape's first call). The fp32 convolutions run without TF32.
+
+Data parallelism (`dynseg_torch.parallel`, one process per rank, as the
+reference's jit over a 1-D mesh): the step is the single-device step on
+the global batch. Every rank samples the global batch on the host with
+the same seed and keeps its rows; the loss is the sum of its local CE
+over the global count of valid pixels; BatchNorm takes the global
+batch's statistics; the gradients are summed over the ranks in one flat
+all-reduce before SGD adds the weight decay; loss, acc and bacc are the
+global batch's. With shard_tiles every rank holds only its block of the
+interleaved tiles and its rows carry local tile ids, sampled by the
+reference's per-device samplers. eval_crops runs replicated, and only
+rank 0 writes.
 
 The device is always the caller's choice (`resolve_device`): asked for
 "cuda" where no card is visible, the port raises and never carries on on
@@ -40,14 +51,16 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from dynseg_torch import parallel
 from dynseg_torch.bridge import flax_to_torch, init_variables_np
 from dynseg_torch.config import Config
 from dynseg_torch.data.sampler import BalancedPatchSampler
 from dynseg_torch.data.tiles import (IGNORE_LABEL, TileSet,
                                      fill_padded_context, mirror_pad,
                                      storage_dtype)
-from dynseg_torch.metrics import (balanced_batch_accuracy, batch_accuracy,
-                                  confusion_matrix)
+from dynseg_torch.metrics import (accuracy_counts, balanced_from_counts,
+                                  batch_accuracy, confusion_matrix,
+                                  recall_counts)
 from dynseg_torch.models.dilated import build_model
 from dynseg_torch.ops.gather import gather_batch
 from dynseg_torch.sched.scheduler import ScaleScheduler
@@ -168,15 +181,22 @@ def ema_variables(cfg: Config, state: TrainState) -> Optional[Dict[str, torch.Te
     return sd
 
 
-def masked_cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """Mean per-pixel softmax CE over the valid (non-IGNORE) pixels; 0 when
-    no pixel is valid (F.cross_entropy with ignore_index gives NaN there)."""
+def _cross_entropy_terms(logits: torch.Tensor, labels: torch.Tensor):
+    """(sum of the per-pixel softmax CE over the valid pixels, their
+    count, int64)."""
     valid = (labels != IGNORE_LABEL).reshape(-1)
     safe = torch.where(valid, labels.reshape(-1), 0)
     ce = F.cross_entropy(logits.reshape(-1, logits.shape[-1]), safe,
                          reduction="none")
     ce = torch.where(valid, ce, 0.0)
-    return ce.sum() / valid.sum().clamp(min=1)
+    return ce.sum(), valid.sum()
+
+
+def masked_cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean per-pixel softmax CE over the valid (non-IGNORE) pixels; 0 when
+    no pixel is valid (F.cross_entropy with ignore_index gives NaN there)."""
+    total, count = _cross_entropy_terms(logits, labels)
+    return total / count.clamp(min=1)
 
 
 def _index_tensor(a: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -214,11 +234,16 @@ class Trainer:
     """Owns the resident tiles, the sampler, the per-scale batch sizes and
     the step; the model and optimizer live in the TrainState."""
 
-    def __init__(self, cfg: Config, train_tiles: TileSet, device):
-        if cfg.train.num_devices != 1 or cfg.train.shard_tiles:
-            raise NotImplementedError(
-                "data parallelism (--num_devices > 1, --shard_tiles) is not "
-                "ported; the port trains on one device")
+    def __init__(self, cfg: Config, train_tiles: TileSet, device,
+                 world: Optional[parallel.World] = None):
+        self.world = parallel.world() if world is None else world
+        n = self.world.size
+        if cfg.train.num_devices != n:
+            raise ValueError(
+                f"num_devices {cfg.train.num_devices} but this process is one "
+                f"of {n} rank(s): launch the ranks with dynseg_torch.parallel."
+                f"spawn (python -m dynseg_torch --num_devices N)")
+        self.shard_tiles = bool(cfg.train.shard_tiles) and n > 1
         # cuDNN runs float32 convs in TF32 by default; TF32 keeps ~3
         # decimal digits and would move the step away from the reference.
         torch.backends.cudnn.allow_tf32 = False
@@ -231,32 +256,96 @@ class Trainer:
 
         # Fail before any large host work if the tiles cannot live on the
         # card even as uint8 (image C bytes + 1 label byte per pixel);
-        # a quarter of the card is left for activations.
+        # a quarter of the card is left for activations. Sharded tiles
+        # divide the need across the ranks' cards.
         t, h, w, c = train_tiles.images.shape
         min_bytes = t * (h + 2 * self.pad) * (w + 2 * self.pad) * (c + 1)
         if self.device.type == "cuda":
             total = torch.cuda.get_device_properties(self.device).total_memory
-            if min_bytes > 0.75 * total:
+            budget = 0.75 * total * (n if self.shard_tiles else 1)
+            if min_bytes > budget:
                 raise MemoryError(
                     f"tile set needs >= {min_bytes / 1e9:.1f} GB of device "
                     f"memory even at uint8 storage, more than 3/4 of the "
-                    f"card's {total / 1e9:.1f} GB; train per region")
+                    f"card's {total / 1e9:.1f} GB"
+                    f"{f' x {n} ranks' if self.shard_tiles else ''}; shard it "
+                    f"(--shard_tiles with a larger --num_devices) or train "
+                    f"per region")
 
         # Mirror-pad once so a patch of any scheduled size centred on a
         # valid pixel stays inside; tiles smaller than the pack see their
         # own mirrored context. Masks stay IGNORE in the pad.
         padded = fill_padded_context(mirror_pad(train_tiles, self.pad), self.pad)
+        sampler_kw = dict(num_classes=cfg.model.num_classes, pad=self.pad,
+                          balanced=cfg.data.balanced_sampling,
+                          max_positions_per_class=cfg.data.max_positions_per_class)
+        if self.shard_tiles:
+            padded, self.tile_order = self._interleave(padded, n)
+            tpd = padded.images.shape[0] // n
+            self.tiles_per_device = tpd
+            # Every rank builds the n per-device samplers (seed + 31 d), so
+            # that every rank draws the global batch in the reference's
+            # order; it uploads only its own block of tiles.
+            self.samplers = []
+            for d in range(n):
+                shard = dataclasses.replace(
+                    padded, images=padded.images[d * tpd:(d + 1) * tpd],
+                    masks=padded.masks[d * tpd:(d + 1) * tpd])
+                try:
+                    self.samplers.append(BalancedPatchSampler(
+                        shard, seed=cfg.train.seed + 31 * d, **sampler_kw))
+                except ValueError as e:
+                    raise ValueError(
+                        f"--shard_tiles: device {d}'s tile shard has no "
+                        f"labeled pixels; use more tiles or fewer devices") from e
+            r = self.world.rank
+            padded = dataclasses.replace(
+                padded, images=padded.images[r * tpd:(r + 1) * tpd],
+                masks=padded.masks[r * tpd:(r + 1) * tpd])
+            self.sampler = self.samplers[0]  # the augment ids' source
+        else:
+            self.sampler = BalancedPatchSampler(padded, seed=cfg.train.seed,
+                                                **sampler_kw)
+            self.samplers = [self.sampler]
         self.images, self.masks, self.mean, self.std = self._upload(padded)
-        self.sampler = BalancedPatchSampler(
-            padded, num_classes=cfg.model.num_classes, pad=self.pad,
-            seed=cfg.train.seed, balanced=cfg.data.balanced_sampling,
-            max_positions_per_class=cfg.data.max_positions_per_class)
         self.dropout_gen = torch.Generator(device=self.device)
         self.dropout_gen.manual_seed(cfg.train.seed + 1)
         # (scale, patches, start mark, end mark) of the train_step calls not
         # yet folded into _step_sums, {scale: [calls, patches, ms]}.
         self.step_marks: collections.deque = collections.deque()
         self._step_sums: Dict[int, List[float]] = {}
+
+    @staticmethod
+    def _interleave(padded: TileSet, n: int) -> Tuple[TileSet, np.ndarray]:
+        """The reference's shard layout: all-IGNORE dummy tiles pad the set
+        to a multiple of n, then the tiles are interleaved so that block d
+        holds tiles {d, d+n, ...} and the dummies spread over the blocks.
+        Returns the laid-out set and, per laid-out tile, its index in the
+        given set (>= its length for a dummy)."""
+        images, masks = padded.images, padded.masks
+        t_pad = (-images.shape[0]) % n
+        if not t_pad:
+            return padded, np.arange(images.shape[0])
+        images = np.concatenate(
+            [images, np.zeros((t_pad,) + images.shape[1:], images.dtype)])
+        masks = np.concatenate(
+            [masks, np.full((t_pad,) + masks.shape[1:], IGNORE_LABEL, masks.dtype)])
+        total = images.shape[0]
+        order = np.concatenate([np.arange(d, total, n) for d in range(n)])
+        return (dataclasses.replace(padded, images=images[order], masks=masks[order]),
+                order)
+
+    def unsharded_positions(self, pos: np.ndarray) -> np.ndarray:
+        """Global positions (B, 3) with the tile ids of the unsharded set:
+        under shard_tiles, rank d's rows carry ids local to block d."""
+        if not self.shard_tiles:
+            return pos
+        out = pos.copy()
+        bl = len(pos) // self.world.size
+        for d in range(self.world.size):
+            ids = pos[d * bl:(d + 1) * bl, 0] + d * self.tiles_per_device
+            out[d * bl:(d + 1) * bl, 0] = self.tile_order[ids]
+        return out
 
     def _upload(self, padded: TileSet):
         sd = storage_dtype(padded.images)
@@ -278,9 +367,10 @@ class Trainer:
         return _new_state(self.cfg, model)
 
     def reseed_samplers(self, salt: int) -> None:
-        """Resume support: fold the restart iteration into the sampler's
+        """Resume support: fold the restart iteration into every sampler's
         position stream (BalancedPatchSampler.reseed), as the reference."""
-        self.sampler.reseed(salt)
+        for s in self.samplers:
+            s.reseed(salt)
 
     def _step_impl(self, state: TrainState, positions: torch.Tensor,
                    aug_ids: torch.Tensor, size: int,
@@ -292,11 +382,16 @@ class Trainer:
         model, opt = state.model, state.optimizer
         model.train()
         logits = model(imgs, self.dropout_gen if generator is None else generator)
-        loss = masked_cross_entropy(logits, labs)
+        # This rank's CE over the global batch's valid pixels: the ranks'
+        # losses and gradients sum to the global batch's.
+        ce_sum, valid = _cross_entropy_terms(logits, labs)
+        valid = parallel.all_reduce_(valid)
+        loss = ce_sum / valid.clamp(min=1)
         for group in opt.param_groups:
             group["lr"] = learning_rate(self.cfg, state.step)
         opt.zero_grad(set_to_none=True)
         loss.backward()
+        parallel.all_reduce_grads(model.parameters())
         opt.step()
         state.step += 1
         if state.ema is not None:
@@ -305,10 +400,20 @@ class Trainer:
                 for name, p in model.named_parameters():
                     state.ema[name].mul_(d).add_(p, alpha=1.0 - d)
         logits = logits.detach()
-        metrics = {"loss": loss.detach(), "acc": batch_accuracy(logits, labs)}
-        if self.cfg.sched.update_type == "balanced_acc":
-            metrics["bacc"] = balanced_batch_accuracy(
-                logits, labs, self.cfg.model.num_classes)
+        bacc = self.cfg.sched.update_type == "balanced_acc"
+        # The global batch's metrics from one all-reduce of the sums; the
+        # counts (exact in float64) go back to int64, so that the ratios
+        # are those of batch_accuracy and balanced_batch_accuracy.
+        nc = self.cfg.model.num_classes
+        parts = [loss.detach().reshape(1), accuracy_counts(logits, labs)[0].reshape(1)]
+        if bacc:
+            parts += list(recall_counts(logits, labs, nc))
+        sums = parallel.all_reduce_(torch.cat([p.double() for p in parts]))
+        counts = sums[1:].long()
+        metrics = {"loss": sums[0].float(),
+                   "acc": (counts[0] / valid.clamp(min=1)).float()}
+        if bacc:
+            metrics["bacc"] = balanced_from_counts(counts[1:1 + nc], counts[1 + nc:])
         return metrics
 
     def _chunk_impl(self, state: TrainState, positions: torch.Tensor,
@@ -323,22 +428,47 @@ class Trainer:
 
     # ------------------------------------------------------------------ #
     def batch_size_for(self, size: int) -> int:
-        """Per-step batch of a bucket; with rescale_batch_by_area the pixel
-        count stays about constant across scales."""
+        """Global per-step batch of a bucket; with rescale_batch_by_area the
+        pixel count stays about constant across scales. Rounded to a
+        multiple of the ranks, at least one row each."""
         b = self.cfg.train.batch_size
         if self.cfg.train.rescale_batch_by_area:
             b = max(8, round(b * (self.scales[0] / size) ** 2))
-        return max(1, b)
+        n = self.world.size
+        return max(n, (b // n) * n)
+
+    def global_batch_inputs(self, size: int, augment: Optional[bool] = None,
+                            k: int = 1) -> Tuple[np.ndarray, np.ndarray]:
+        """Host sampling of K global step-batches, as the reference draws
+        them: (K, B, 3) positions and (K, B) augment ids, int32 numpy.
+        With shard_tiles, rank d's rows come from sampler d and carry
+        local tile ids; the augment ids from sampler 0."""
+        b = self.batch_size_for(size)
+        aug = self.cfg.data.augment if augment is None else augment
+        if self.shard_tiles:
+            bl = b // self.world.size
+            pos = np.empty((k, b, 3), np.int32)
+            for d, s in enumerate(self.samplers):
+                pos[:, d * bl:(d + 1) * bl] = s.sample(k * bl).reshape(k, bl, 3)
+        else:
+            pos = self.sampler.sample(k * b).reshape(k, b, 3)
+        aug_ids = self.sampler.sample_augment_ids(k * b, aug).reshape(k, b)
+        return pos, aug_ids
+
+    def local_rows(self, b: int) -> slice:
+        """This rank's rows of a global batch of b."""
+        n, r = self.world.size, self.world.rank
+        return slice(r * (b // n), (r + 1) * (b // n))
 
     def make_batch_inputs(self, size: int, augment: Optional[bool] = None,
                           k: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Host sampling of K step-batches: (K, B, 3) positions and (K, B)
-        augment ids, int32 on the device."""
-        b = self.batch_size_for(size)
-        aug = self.cfg.data.augment if augment is None else augment
-        pos = self.sampler.sample(k * b).reshape(k, b, 3)
-        aug_ids = self.sampler.sample_augment_ids(k * b, aug).reshape(k, b)
-        return _index_tensor(pos, self.device), _index_tensor(aug_ids, self.device)
+        """This rank's rows of K global step-batches (`global_batch_inputs`):
+        (K, B/n, 3) positions and (K, B/n) augment ids, int32 on the
+        device."""
+        pos, aug_ids = self.global_batch_inputs(size, augment, k)
+        mine = self.local_rows(pos.shape[1])
+        return (_index_tensor(pos[:, mine], self.device),
+                _index_tensor(aug_ids[:, mine], self.device))
 
     def train_step(self, state: TrainState, size: int) -> Tuple[TrainState, Metrics]:
         """cfg.train.steps_per_call optimizer steps at patch size `size`."""
@@ -435,7 +565,7 @@ class Trainer:
         gen.manual_seed(0)
         for s in self.scales:
             t0 = time.perf_counter()
-            b = self.batch_size_for(s)
+            b = self.batch_size_for(s) // self.world.size
             pos = np.zeros((k, b, 3), np.int32)
             pos[..., 1:] = self.pad
             scratch = copy.deepcopy(state)
@@ -468,7 +598,13 @@ def train_loop(
     `metric_fetch_depth` launches later, so the host queues the next step
     while the card runs this one. With a checkpointer, SIGTERM/SIGINT set
     a flag checked once per launch: the loop drains the pending scores,
-    checkpoints the exact iteration and returns."""
+    checkpoints the exact iteration and returns.
+
+    Under a data-parallel group every rank runs this loop in step: the stop
+    (a signal to any rank) and the scale (rank 0's choice, which every
+    rank's scheduler must also have drawn) are agreed on the host before
+    each launch, so all ranks take the same scale and stop at the same
+    step boundary."""
     niter = cfg.train.niter if niter is None else niter
     stop_sig = {"num": None}
     prev_handlers = {}
@@ -511,14 +647,21 @@ def train_loop(
     it = start_iter
     try:
         while it < niter:
-            if stop_sig["num"] is not None:
+            stop, _ = parallel.agree(stop_sig["num"] is not None)
+            if stop:
                 while pending:
                     consume_one()
                 checkpointer(it, state, scheduler)
-                log(f"signal {stop_sig['num']} received: checkpointed at "
-                    f"iteration {it}, stopping")
+                log(f"signal {stop_sig['num'] or 'to another rank'} received: "
+                    f"checkpointed at iteration {it}, stopping")
                 return state
             scale = scheduler.select()
+            chosen = parallel.broadcast_choice(scale)
+            if chosen != scale:
+                raise RuntimeError(
+                    f"rank {parallel.world().rank}: the scheduler drew scale "
+                    f"{scale} where rank 0's drew {chosen}; the ranks' "
+                    f"schedulers diverged")
             state, metrics = trainer.train_step(state, scale)
             prev_it, it = it, it + k
             patches += k * trainer.batch_size_for(scale)

@@ -5,7 +5,10 @@ JAX package); tests/test_torch_data.py holds it to the original.
 
 The reference prints loss/acc/time to stdout; this logger does the same
 AND appends machine-readable JSONL records (metrics.jsonl in the output
-dir) so runs are comparable without scraping stdout."""
+dir) so runs are comparable without scraping stdout.
+
+Under data parallelism (dynseg_torch.parallel) the logger of a rank other
+than 0 prints and writes nothing: rank 0 speaks for the group."""
 
 from __future__ import annotations
 
@@ -13,6 +16,8 @@ import json
 import os
 import time
 from typing import Optional
+
+from dynseg_torch import parallel
 
 
 def _coerce(obj):
@@ -28,9 +33,9 @@ def _coerce(obj):
 
 class MetricLogger:
     def __init__(self, output_path: Optional[str] = None, echo=print):
-        self.echo = echo
+        self.echo = echo if parallel.is_main() else (lambda *_: None)
         self._fh = None
-        if output_path:
+        if output_path and parallel.is_main():
             os.makedirs(output_path, exist_ok=True)
             self._fh = open(
                 os.path.join(output_path, "metrics.jsonl"), "a", buffering=1

@@ -2,7 +2,7 @@
 parser, the config and the helpers copied from the reference held equal
 to their originals; the --resume guards; train -> testing, resume after a
 SIGTERM, predict and info on small nets on the CPU; the refusal of a
-missing card and of parts not ported; and a dynseg checkpoint imported
+missing card; and a dynseg checkpoint imported
 with import_reference_state, scored by both packages."""
 
 import dataclasses
@@ -361,7 +361,7 @@ def test_predict_and_info(port_run, tmp_path, capsys):
 
 
 # --------------------------------------------------------------------- #
-# no silent CPU fallback; parts not ported
+# no silent CPU fallback
 # --------------------------------------------------------------------- #
 def test_no_silent_cpu_fallback(tmp_path, monkeypatch):
     """The device is an explicit argument: Trainer without one raises
@@ -392,15 +392,6 @@ def test_command_line_without_a_card_exits_non_zero(tmp_path):
     assert res.returncode != 0
     assert "no CUDA card is visible" in res.stderr and "--device cpu" in res.stderr
     assert "TOTAL" not in res.stdout
-
-
-@pytest.mark.parametrize("extra", [
-    ["--operation", "training", "--num_devices", "2"],
-    ["--operation", "training", "--num_devices", "2", "--shard_tiles"],
-], ids=["num_devices", "shard_tiles"])
-def test_parts_not_ported_are_refused(extra, tmp_path):
-    with pytest.raises(SystemExit, match="not ported"):
-        cli.main([*extra, "--device", "cpu", "--output_path", str(tmp_path)])
 
 
 @pytest.mark.parametrize("extra", [

@@ -408,3 +408,123 @@ def test_p1_kernel_refuses_strided_input(cuda):
     w = torch.zeros((3, 3, 32, 32), dtype=torch.int8, device=cuda)
     with pytest.raises(ValueError, match="contiguous"):
         int8_probe_conv.int8_conv3x3_requant(x, w, 0.5, 1)
+
+
+# --------------------------------------------------------------------- #
+# data parallelism on the card (chip_smoke.py phase 18, at small width)
+# --------------------------------------------------------------------- #
+def _dp_train_cfg(n, shard=False):
+    from dynseg_torch.config import Config, ModelConfig, SchedulerConfig, TrainConfig
+
+    return Config(model=ModelConfig(width_multiplier=0.25, pool_backward="pallas"),
+                  sched=SchedulerConfig(values=(25, 65)),
+                  train=TrainConfig(batch_size=16, learning_rate=0.01, num_devices=n,
+                                    shard_tiles=shard))
+
+
+def _dp_distance(a, b):
+    """(max relative loss difference, max|dparam|, max|dBN statistics|)
+    between two train_steps runs."""
+    sa, sb = a["state"], b["state"]
+    dp = max(float(np.abs(sa[k] - v).max()) for k, v in sb.items()
+             if v.dtype == np.float32 and "running" not in k)
+    dbn = max(float(np.abs(sa[k] - v).max()) for k, v in sb.items() if "running" in k)
+    rel = max(abs(x - y) / abs(y) for x, y in zip(a["losses"], b["losses"]))
+    return rel, dp, dbn
+
+
+def _dp_assert_steps(got, want, floor):
+    """Every loss within 1e-5 relative; after the first step params within
+    1e-6 and BN statistics within 1e-5; after the last, each within the
+    larger of those and twice `floor`, `want`'s own float32 noise (its
+    reruns on the same batches with the rows in other orders, as
+    chip_smoke.py phase 18); K2/K4 launches equal the gathers and pool
+    backwards, every K4 launch fused."""
+    first = {"losses": got["losses"][:1], "state": got["states"][0]}
+    _, dp1, dbn1 = _dp_distance(first, {"losses": want["losses"][:1],
+                                        "state": want["states"][0]})
+    assert dp1 <= 1e-6 and dbn1 <= 1e-5, (dp1, dbn1)
+    rel, dp, dbn = _dp_distance(got, want)
+    assert (rel <= 1e-5 and dp <= max(1e-6, 2 * floor[1])
+            and dbn <= max(1e-5, 2 * floor[2])), (rel, dp, dbn, floor)
+    assert (got["k2"], got["k4"], got["k4_fused"]) == (
+        got["gathers"], got["pool_bwds"], got["pool_bwds"])
+
+
+def _dp_one_device(cfg, tiles, variables, sizes, batches):
+    """One device on `batches`, and the largest distance to four reruns
+    with each batch's rows in another order."""
+    from dynseg_torch.probes import dp_parity
+
+    one = dp_parity.train_steps(cfg, tiles, variables, sizes, batches, device="cuda")
+    floor = (0.0, 0.0, 0.0)
+    for seed in (9, 10, 11, 12):
+        perm = np.random.default_rng(seed).permutation(len(batches[0][0]))
+        again = dp_parity.train_steps(cfg, tiles, variables, sizes,
+                                      [(p[perm], a[perm]) for p, a in batches],
+                                      device="cuda")
+        floor = tuple(map(max, floor, _dp_distance(again, one)))
+    return one, floor
+
+
+@pytest.mark.parametrize("ranks", [1, 2])
+def test_data_parallel_steps_on_the_card_match_one_device(cuda, ranks):
+    """Two steps (25, 65 px) of a width-0.25 net at batch 16: one rank in
+    an NCCL group, or two ranks sharing the card over gloo (replicated
+    tiles, then --shard_tiles on the ranks' own sampling), against one
+    device on the same global batches (`_dp_assert_steps`)."""
+    from dynseg_torch import parallel
+    from dynseg_torch.bridge import init_variables_np
+    from dynseg_torch.data.datasets import load_synthetic
+    from dynseg_torch.probes import dp_parity
+    from dynseg_torch.train import Trainer
+
+    tiles = load_synthetic(seed=0, num_tiles=3, size=96)[0]
+    variables = init_variables_np(_dp_train_cfg(1).model, 3, seed=1)
+    sizes = [25, 65]
+    sampler = Trainer(_dp_train_cfg(1), tiles, device="cpu")
+    batches = [tuple(a[0] for a in sampler.global_batch_inputs(s)) for s in sizes]
+    one, floor = _dp_one_device(_dp_train_cfg(1), tiles, variables, sizes, batches)
+    backend = "nccl" if ranks == 1 else "gloo"
+    calls = [(dp_parity.train_steps, (_dp_train_cfg(ranks), tiles, variables, sizes,
+                                      batches))]
+    if ranks == 2:
+        calls.append((dp_parity.train_steps, (_dp_train_cfg(2, True), tiles, variables,
+                                              sizes)))
+    got = parallel.spawn(dp_parity.run_many, ranks, ["cuda:0"] * ranks, backend,
+                         args=(calls,))
+    if ranks == 2:
+        one_shard, shard_floor = _dp_one_device(_dp_train_cfg(1), tiles, variables,
+                                                sizes, got[0][1]["batches"])
+    for res in got:
+        _dp_assert_steps(res[0], one, floor)
+        if ranks == 2:
+            _dp_assert_steps(res[1], one_shard, shard_floor)
+
+
+def test_split_int8_inference_on_the_card_matches_one_device(cuda):
+    """Dense int8 at full width on a 256^2 tile, blocks of 64: two ranks
+    sharing the card over gloo hold one device's quantized state_dict
+    bitwise and its probabilities within 1e-5; each rank's K5 launches
+    are 3 per int8 forward, all wgmma."""
+    from dynseg_torch import parallel
+    from dynseg_torch.bridge import flax_to_torch, init_variables_np
+    from dynseg_torch.config import Config, InferConfig, ModelConfig
+    from dynseg_torch.data.datasets import load_synthetic
+    from dynseg_torch.probes import dp_parity
+
+    cfg = Config(model=ModelConfig(num_classes=2),
+                 infer=InferConfig(scales=(25,), mode="dense", quant="int8",
+                                   dense_block=64, dense_halo=40,
+                                   save_prediction_maps=False))
+    tiles = load_synthetic(seed=0, num_tiles=2, size=256)[1]
+    sd = flax_to_torch(init_variables_np(cfg.model, 3, seed=2))
+    one = dp_parity.predict(cfg, tiles, sd, "cuda")
+    for res in parallel.spawn(dp_parity.predict, 2, ["cuda:0"] * 2, "gloo",
+                              args=(cfg, tiles, sd)):
+        for k, v in one["qvars"].items():
+            np.testing.assert_array_equal(res["qvars"][k], v, err_msg=k)
+        for p, q in zip(res["probs"], one["probs"]):
+            np.testing.assert_allclose(p, q, rtol=0, atol=1e-5)
+        assert res["forwards"] > 0
+        assert res["k5"] == res["k5_wgmma"] == 3 * res["forwards"]

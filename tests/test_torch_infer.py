@@ -137,6 +137,39 @@ def test_float_validate_test_matches_reference(tiles96, mode):
     assert 0.1 < got["predictions"][0].mean() < 0.9
 
 
+@pytest.mark.parametrize("mode", ["window", "dense"])
+def test_one_device_pads_a_short_batch_to_full_size(tiles96, mode):
+    """One device pads a scale's short last window batch, or the short last
+    group of dense blocks, to its full size, as the reference pads them
+    (dynseg/infer.py predict_tile and _dense_device): every forward takes
+    one batch size, and the map is that of forwards of the unpadded
+    batches (probabilities 1e-5, labels but at ties)."""
+    cfg = _cfg(mode=mode, dense_block=32, window_batch=40)
+    sd = flax_to_torch(_variables(cfg, tiles96))
+    inf = infer.Inferencer(_port(cfg), _port(tiles96), device="cpu")
+    probs, split = inf._probs, inf._split_probs
+    asked, forwarded = [], []
+
+    def counted(variables, tile, origins, size):
+        forwarded.append(len(origins))
+        return probs(variables, tile, origins, size)
+
+    def recorded(variables, tile, origins, size, full):
+        asked.append((len(origins), full))
+        return split(variables, tile, origins, size, full)
+
+    inf._probs, inf._split_probs = counted, recorded
+    predict = ((lambda: inf.predict_tile_dense(sd, 0, 32, 40)) if mode == "dense"
+               else (lambda: inf.predict_tile(sd, 0)))
+    pred, prob = predict()
+    full = 40 if mode == "window" else 8
+    assert {f for _, f in asked} == {full} and set(forwarded) == {full}
+    assert any(m < full for m, _ in asked)  # a short batch was padded
+    inf._split_probs = lambda variables, tile, origins, size, full: probs(
+        variables, tile, origins, size)
+    _assert_probs_and_labels(pred, prob, *predict())
+
+
 def test_eroded_scores_and_confusion(tiles96):
     cfg = _cfg(eroded_boundary_radius=2)
     got = infer.validate_test(_port(cfg), flax_to_torch(_variables(cfg, tiles96)),

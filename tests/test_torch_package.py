@@ -38,7 +38,8 @@ def test_every_module_imports_without_the_jax_package():
         "names = [m.name for m in pkgutil.walk_packages(dynseg_torch.__path__, 'dynseg_torch.')",
         "         if not m.name.endswith('__main__')]",
         "assert len(names) >= 27, names",
-        "assert {'dynseg_torch.export', 'dynseg_torch.serve'} <= set(names), names",
+        "assert {'dynseg_torch.export', 'dynseg_torch.serve', 'dynseg_torch.parallel',",
+        "        'dynseg_torch.utils.profiling', 'dynseg_torch.probes.dp_parity'} <= set(names), names",
         "for name in names:",
         "    __import__(name)",
         "from dynseg_torch.cli import main",
@@ -94,7 +95,8 @@ def test_package_imports_no_jax():
             "dynseg_torch.bridge, dynseg_torch.train, dynseg_torch.cli, "
             "dynseg_torch.ops.gather, dynseg_torch.ops.pool, dynseg_torch.checkpoint, "
             "dynseg_torch.ops.int8_probe_conv, dynseg_torch.probes.int8_kernel_probe, "
-            "dynseg_torch.export, dynseg_torch.serve; "
+            "dynseg_torch.export, dynseg_torch.serve, dynseg_torch.parallel, "
+            "dynseg_torch.utils.profiling, dynseg_torch.probes.dp_parity; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax')); "
             "assert not bad, bad; "
             "assert 'dynseg_torch.ops._build' not in sys.modules")

@@ -426,12 +426,6 @@ def test_compile_buckets_leaves_state_untouched(tiles):
         assert torch.equal(v, before[k]), k
 
 
-def test_data_parallel_options_raise(tiles):
-    for kw in (dict(num_devices=2), dict(num_devices=2, shard_tiles=True)):
-        with pytest.raises(NotImplementedError, match="data parallelism"):
-            train.Trainer(_port(tiny_config(**kw)), _port(tiles[0]), device="cpu")
-
-
 # --------------------------------------------------------------------- #
 # entry point
 # --------------------------------------------------------------------- #
