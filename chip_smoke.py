@@ -160,8 +160,40 @@ runs without them.
      batch, with cuDNN on and off (what makes a forward depend on its
      batch).
 
-Phases 12-15 run after phase 4, phase 16 after phase 8 and phases 17-18
-after phase 11, each beside the phase it is compared with.
+ 19. reproducibility, after phase 18, at phase 7's full width (batch 100,
+     multinomial over 25..65, its tiles, seed 0): a. train_loop twice
+     from the same seed, REPRO_STEPS steps (at least one at 25 and one at
+     65 px), EMA 0.9 with RECALIB recalibration batches, in float32 with
+     pool_backward pallas (K4) and in bfloat16 with xla (ATen's pool
+     backward): params, BN statistics, momentum, EMA weights, the
+     recalibrated statistics, per-step losses, the scales drawn and the
+     scheduler's scores bitwise equal, cuDNN's deterministic flag on; b.
+     readings: the float32 run with cuDNN's free choice of algorithms (a
+     cudnn.flags context here, not a package switch) against a's, and
+     ms/step at 25 and 65 px both ways in float32 and bfloat16 (with
+     --profile DIR, the kernels whose time the deterministic step grew);
+     c. a's float32 checkpoint restored twice, REPRO_RESUME_STEPS more
+     steps each: bitwise; d. phase 18's two gloo ranks sharing cuda:0
+     through its three steps twice: each rank bitwise to its rerun, with
+     cuDNN's deterministic flag on in the spawned ranks; e. a reading:
+     validate_test twice in one process in a serving process's cuDNN
+     mode (window float on a 512^2 crop of phase 3's tile, dense int8 on
+     its 2048^2 tile): max|dprob| and labels between the runs; f. a's
+     runs once more under torch.use_deterministic_algorithms(True), which
+     must not raise; g. `python -m dynseg_torch.run_folds --folds 2`
+     twice side by side (phase 11's data flags, FOLDS_NITER iterations,
+     pool_backward pallas): the two folds_summary.json files
+     byte-identical, each fold's K2/K4 launches held to its run.
+ 20. a reading, after phase 13: quant_min_ch 64 (blocks 1-2 also int8)
+     against the default 128 on phase 13's window int8 1024^2 and dense
+     int8 2048^2 runs: first K5 at blocks 1-2's geometries (64->64 k5 d2,
+     64->128 k4 d3) vs plain, bitwise, at a dense batch and window
+     batches; then Mpx/s, label agreement with the float32 run of the
+     mode, and K5 launches by geometry and variant, the first launch of
+     each geometry bitwise to plain.
+
+Phases 12-15 and 20 run after phase 4, phase 16 after phase 8 and phases
+17-19 after phase 11, each beside the phase it is compared with.
 
 With --profile DIR, it also traces one warm call of each serving run and
 one warm train step per pool backward with torch.profiler, and writes the
@@ -195,6 +227,10 @@ import warnings
 
 import numpy as np
 import torch
+
+# cuBLAS's deterministic workspace, set before CUDA initialises: phase 19
+# runs a training run under torch.use_deterministic_algorithms(True).
+os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
 
 
 class _Absent(importlib.abc.MetaPathFinder):
@@ -270,6 +306,14 @@ DP_REORDER_SEEDS = (9, 10, 11, 12)
 DP_SHORT_BATCH = 37
 # Where the ranks run: one card, NCCL for the world of one rank.
 DP_DEVICE, DP_ONE_BACKEND = "cuda:0", "nccl"
+# Phase 19: the same-seed training runs (steps, and steps after a
+# restore), the steps timed per scale and cuDNN mode, the crop of phase
+# 3's tile for serving, and the fold runs' iterations per fold.
+REPRO_STEPS, REPRO_RESUME_STEPS, REPRO_TIMED, REPRO_CROP = 12, 4, 5, 512
+FOLDS_NITER = 10
+# Phase 20: blocks 1-2 of dilated_icpr_rate6 at width 1.0, which
+# quant_min_ch 64 also quantizes (the default 128 leaves them float).
+LOW_GEOMETRIES = (("block1", 64, 64, 5, 2, True), ("block2", 64, 128, 4, 3, True))
 
 
 def log(msg: str) -> None:
@@ -1160,13 +1204,15 @@ class _LivePredictor:
         return self.forward(torch.from_numpy(np.ascontiguousarray(x)).to(DEVICE))
 
 
-def check_k5_serve_shapes(int8_conv, shapes=SERVE_K5_SHAPES, what="serve") -> float:
+def check_k5_serve_shapes(int8_conv, shapes=SERVE_K5_SHAPES, what="serve",
+                          geometries=GEOMETRIES) -> float:
     """Phase 17, first: K5's serving variant (wgmma) vs plain, bitwise, at
     the shapes the serve path gives it (SERVE_K5_SHAPES), for each block
     with the requant of the int8 exit's route and block 5 with its
-    float32 store too; phase 18 at a rank's shapes. The data is made on
-    the card from a seed; the plain version runs SERVE_K5_PLAIN_CHUNK
-    samples a call. Returns the largest difference."""
+    float32 store too; phase 18 at a rank's shapes, phase 20 at blocks
+    1-2's `geometries`. The data is made on the card from a seed; the
+    plain version runs SERVE_K5_PLAIN_CHUNK samples a call. Returns the
+    largest difference."""
     gen = torch.Generator(device=DEVICE).manual_seed(17)
 
     def codes(shape, mean, std):
@@ -1174,7 +1220,7 @@ def check_k5_serve_shapes(int8_conv, shapes=SERVE_K5_SHAPES, what="serve") -> fl
                 ).round_().clamp_(-127, 127).to(torch.int8)
 
     worst = 0.0
-    for name, cin, cout, k, dil, requant in GEOMETRIES:
+    for name, cin, cout, k, dil, requant in geometries:
         w = codes((k, k, cin, cout), 0, 35)
         a = (torch.rand(cout, generator=gen, device=DEVICE) + 0.5) / (
             math.sqrt(k * k * cin) * 38 * 35)
@@ -1911,14 +1957,35 @@ def _dp_cudnn_witness(cfg, tiles, weights, card: str) -> None:
                 f"{d_half:.2e}; in a batch of {m} vs of {b}: {d_short:.2e} [{card}]")
 
 
+def dp_train_config(n: int, shard: bool = False):
+    """Phase 18's steps at n ranks: phase 7's configuration over the
+    scales of DP_SIZES, no EMA."""
+    cfg = train_config("pallas", len(DP_SIZES), False,
+                       scales=tuple(sorted(set(DP_SIZES))))
+    return dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, num_devices=n, shard_tiles=shard))
+
+
+def dp_inputs() -> tuple:
+    """Phase 18's tiles (phase 7's), variables and global batches, the
+    batches drawn by a CPU trainer as the ranks draw them."""
+    from dynseg_torch.bridge import init_variables_np
+    from dynseg_torch.data.datasets import load_synthetic
+    from dynseg_torch.train import Trainer
+
+    tiles = load_synthetic(seed=0, num_tiles=4, size=TRAIN_TILE)[0]
+    variables = init_variables_np(dp_train_config(1).model, num_input_bands=3, seed=0)
+    sampler = Trainer(dp_train_config(1), tiles, device="cpu")
+    batches = [tuple(a[0] for a in sampler.global_batch_inputs(s)) for s in DP_SIZES]
+    return tiles, variables, batches
+
+
 def run_data_parallel(gather, pool, int8_conv, card: str) -> dict:
     """Phase 18: data parallelism over torch.distributed (see the module
     docstring). Returns each rank's K2, K4 and K5 launches."""
     from dynseg_torch import parallel
-    from dynseg_torch.bridge import init_variables_np
     from dynseg_torch.data.datasets import load_synthetic
     from dynseg_torch.probes import dp_parity
-    from dynseg_torch.train import Trainer
 
     root = os.path.dirname(os.path.abspath(__file__))
     t_phase = time.perf_counter()
@@ -1928,18 +1995,8 @@ def run_data_parallel(gather, pool, int8_conv, card: str) -> dict:
          "--num_devices", str(n_over), "--output_path", os.path.join(OUT_DIR, "dp_refused")],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=root)
     check_dp_kernel_shapes(gather, pool, int8_conv)
-
-    def train_cfg(n, shard=False):
-        cfg = train_config("pallas", len(DP_SIZES), False,
-                           scales=tuple(sorted(set(DP_SIZES))))
-        return dataclasses.replace(cfg, train=dataclasses.replace(
-            cfg.train, num_devices=n, shard_tiles=shard))
-
-    tiles = load_synthetic(seed=0, num_tiles=4, size=TRAIN_TILE)[0]
-    variables = init_variables_np(train_cfg(1).model, num_input_bands=3, seed=0)
-    sampler = Trainer(train_cfg(1), tiles, device="cpu")
-    batches = [tuple(a[0] for a in sampler.global_batch_inputs(s)) for s in DP_SIZES]
-    del sampler
+    train_cfg = dp_train_config
+    tiles, variables, batches = dp_inputs()
     wt = {k: v.cpu() for k, v in seeded_weights(config("window", "none").model, 3).items()}
     tiles1k = load_synthetic(seed=0, num_tiles=2, size=WINDOW_TILE)[1]
     tiles2k = load_synthetic(seed=1, num_tiles=2, size=DENSE_TILE)[1]
@@ -2044,6 +2101,327 @@ def run_data_parallel(gather, pool, int8_conv, card: str) -> dict:
             "k5": [r[3]["k5"] + r[4]["k5"] for r in ranks]}
 
 
+def repro_config(pool_backward: str, dtype: str):
+    """Phase 19's training run: phase 7's configuration (full width, batch
+    100, multinomial over 25..65, its tiles) with EMA 0.9 and RECALIB
+    recalibration batches, REPRO_STEPS steps from seed 0 (whose first
+    draws take 25 and 65 px)."""
+    cfg = train_config(pool_backward, REPRO_STEPS, True, dtype=dtype)
+    return dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, seed=0))
+
+
+def _cudnn_free():
+    """cuDNN's free choice of algorithms (the flag's default), for a
+    reading against the deterministic step the port takes."""
+    return torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                      deterministic=False, allow_tf32=False)
+
+
+def _repro_line(what: str, d: dict) -> str:
+    return (f"{what}: max|dparam| {d['params']:.2e}, BN stats {d['bn']:.2e}, momentum "
+            f"{d['momentum']:.2e}, EMA {d['ema']:.2e}, recalibrated {d['recal']:.2e}, "
+            f"losses {d['losses']:.2e}, scheduler scores {d['scores']:.2e}, scales "
+            f"{'equal' if d['scales'] == 0 else 'differ'}")
+
+
+def _repro_require(what: str, d: dict) -> None:
+    if any(v != 0 for v in d.values()):
+        raise SystemExit(f"{what}: two same-seed runs differ {d}")
+
+
+def time_deterministic_steps(tiles, card: str, profile_dir=None) -> None:
+    """Phase 19 b, the cost: ms/step at 25 and 65 px (the mean of
+    REPRO_TIMED steps after a warm one) with the deterministic algorithms
+    the port asks for against cuDNN's free choice, in float32 (K4) and
+    bfloat16 (ATen's pool backward), on one Trainer per dtype. With a
+    profile directory, each mode's step is traced and the kernels whose
+    time grew are named."""
+    from dynseg_torch.train import Trainer
+
+    if profile_dir:
+        os.makedirs(profile_dir, exist_ok=True)
+    for pb, dtype in (("pallas", "float32"), ("xla", "bfloat16")):
+        tr = Trainer(train_config(pb, 1, False, dtype=dtype), tiles, device=DEVICE)
+        st = tr.init_state(seed=0)
+        for size in (25, 65):
+            ms, top = {}, {}
+            for det in (True, False):
+                with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                                deterministic=det, allow_tf32=False):
+                    ms[det] = time_ms(lambda: tr.train_step(st, size), REPRO_TIMED)
+                    if profile_dir:
+                        top[det] = kernel_ms(profile_step(tr, st, size, os.path.join(
+                            profile_dir, f"repro_{dtype}_{size}_{'det' if det else 'free'}.json"))[1])
+            log(f"  b. {dtype} (pool_backward {pb}) scale {size}: deterministic "
+                f"{ms[True]:.3f} ms/step, cuDNN's free choice {ms[False]:.3f} ms/step, "
+                f"cost {ms[True] / ms[False] - 1:+.3f} [{card}]")
+            if top:
+                grew = sorted(((top[True].get(k, 0.0) - top[False].get(k, 0.0), k)
+                               for k in set(top[True]) | set(top[False])), reverse=True)
+                for delta, name in grew[:6]:
+                    log(f"      {delta:+8.3f} ms  det {top[True].get(name, 0.0):8.3f}  "
+                        f"free {top[False].get(name, 0.0):8.3f}  {name}")
+        del tr, st
+        torch.cuda.empty_cache()
+
+
+def _crop(tiles, side: int):
+    """The top-left side x side pixels of every tile of a TileSet."""
+    return dataclasses.replace(
+        tiles, images=np.ascontiguousarray(tiles.images[:, :side, :side]),
+        masks=np.ascontiguousarray(tiles.masks[:, :side, :side]),
+        valid_hw=np.minimum(tiles.valid_hw, side))
+
+
+def _serving_reruns(card: str) -> None:
+    """Phase 19 e: validate_test twice in one process, in a serving
+    process's cuDNN mode (the flag's default: no Trainer built there):
+    window float on a REPRO_CROP^2 crop of phase 3's window tile and dense
+    int8 on its 2048^2 tile, weights centred as in phase 13. The two runs'
+    scores and maps, and the probabilities of the same Inferencer path
+    (dp_parity.predict) twice."""
+    from dynseg_torch.data.datasets import load_synthetic
+    from dynseg_torch.infer import validate_test
+    from dynseg_torch.probes import dp_parity
+
+    wt = seeded_weights(config("window", "none").model, 3)
+    crop = _crop(load_synthetic(seed=0, num_tiles=2, size=WINDOW_TILE)[1], REPRO_CROP)
+    tiles2k = load_synthetic(seed=1, num_tiles=2, size=DENSE_TILE)[1]
+    wt = {k: v.to(DEVICE) for k, v in wt.items()}
+    runs = ((f"window float {REPRO_CROP}^2", config("window", "none"), crop,
+             centred_weights(wt, "window", crop)),
+            (f"dense int8 {DENSE_TILE}^2", config("dense", "int8"), tiles2k,
+             centred_weights(wt, "dense", tiles2k)))
+    with _cudnn_free():
+        for name, cfg, tiles, w in runs:
+            s = [validate_test(cfg, w, tiles, DEVICE, log=lambda *_: None) for _ in range(2)]
+            p = [dp_parity.predict(cfg, tiles, w, DEVICE) for _ in range(2)]
+            dprob = max(float(np.abs(a - b).max()) for a, b in zip(p[0]["probs"], p[1]["probs"]))
+            moved = sum(int((a != b).sum()) for a, b in
+                        zip(s[0]["predictions"], s[1]["predictions"]))
+            same = all(s[0][k] == s[1][k] for k in ("oa", "kappa", "mean_f1"))
+            log(f"  e. {name}, cuDNN's free choice, run twice in one process: "
+                f"max|dprob| {dprob:.2e}, {moved} labels differ, OA/kappa/meanF1 "
+                f"equal: {same} (OA {s[0]['oa']:.6f}) [{card}]")
+
+
+def _start_fold_runs() -> list:
+    """Phase 19 g, started: `python -m dynseg_torch.run_folds --folds 2`
+    twice, side by side on the card, at phase 11's data flags with
+    FOLDS_NITER iterations a fold and pool_backward pallas. Returns the
+    jobs for `_check_fold_runs`."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(os.path.join(root, OUT_DIR), exist_ok=True)
+    jobs = []
+    for run in ("a", "b"):
+        out = os.path.join(root, OUT_DIR, f"folds_{run}")
+        shutil.rmtree(out, ignore_errors=True)
+        log_path = os.path.join(root, OUT_DIR, f"folds_{run}.log")
+        with open(log_path, "w") as f:
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "dynseg_torch.run_folds", "--folds", "2",
+                 "--output_path", out, "--device", DEVICE, "--dataset", "synthetic",
+                 "--dataset_kwargs", json.dumps({"size": TRAIN_TILE, "num_tiles": 4}),
+                 "--values", ",".join(map(str, SCALES)), "--batch_size", str(TRAIN_BATCH),
+                 "--niter", str(FOLDS_NITER), "--eval_every", str(FOLDS_NITER),
+                 "--checkpoint_every", str(FOLDS_NITER), "--pool_backward", "pallas"],
+                stdout=f, stderr=subprocess.STDOUT, text=True, cwd=root)
+        jobs.append((run, time.perf_counter(), proc, out, log_path))
+    return jobs
+
+
+def _check_fold_runs(jobs: list, card: str) -> None:
+    """Phase 19 g: the two fold runs' folds_summary.json files
+    byte-identical; each fold's K2/K4 launches held to its run."""
+    n = len(SCALES)
+    summaries = []
+    for run, t0, proc, out, log_path in jobs:
+        rc = proc.wait(timeout=600)
+        with open(log_path) as f:
+            lines = f.read().splitlines()
+        log(f"  g. run_folds --folds 2 ({run}): exit {rc}, wall "
+            f"{time.perf_counter() - t0:.1f} s [{card}]")
+        if rc != 0:
+            print("\n".join(lines[-40:]), file=sys.stderr)
+            raise SystemExit(f"run_folds ({run}) exited {rc}")
+        for fold in range(2):
+            got = _launch_line([m.removeprefix(f"fold {fold} ") for m in lines
+                                if m.startswith(f"fold {fold} kernel launches:")],
+                               f"run_folds fold {fold}")
+            want = {"patch_gather": n + FOLDS_NITER + 1,
+                    "pool_bwd": 6 * (n + FOLDS_NITER), "pool_bwd.fused": 6 * (n + FOLDS_NITER)}
+            log(f"    fold {fold}: K2 launches {got['patch_gather']}, K4 launches "
+                f"{got['pool_bwd']} (fused {got['pool_bwd.fused']}); expected {want}")
+            if any(got[k] != v for k, v in want.items()):
+                raise SystemExit(f"run_folds ({run}) fold {fold}: launches do not match")
+        with open(os.path.join(out, "folds_summary.json"), "rb") as f:
+            summaries.append(f.read())
+    summary = json.loads(summaries[0])
+    log(f"    folds_summary.json byte-identical: {summaries[0] == summaries[1]}; "
+        f"OA {summary['oa_mean']:.6f} +- {summary['oa_std']:.6f}, kappa "
+        f"{summary['kappa_mean']:.6f}, mean F1 {summary['mean_f1_mean']:.6f}")
+    if summaries[0] != summaries[1] or not summary["complete"]:
+        raise SystemExit("run_folds: two same-seed runs wrote different summaries")
+
+
+def run_reproducibility(gather, pool, card: str, profile_dir=None) -> None:
+    """Phase 19: two same-seed training runs at full width are bitwise
+    equal (see the module docstring for a-g)."""
+    from dynseg_torch.probes import repro
+
+    t_phase = time.perf_counter()
+    tiles, variables, batches = dp_inputs()
+    ckpt = os.path.join(OUT_DIR, "repro_ckpt")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    first = {}
+    for pb, dtype in (("pallas", "float32"), ("xla", "bfloat16")):
+        cfg = repro_config(pb, dtype)
+        gather.launches = 0
+        pool.reset_launches()
+        t0 = time.perf_counter()
+        a = repro.train_run(cfg, tiles, DEVICE, recalib=RECALIB,
+                            save_to=ckpt if dtype == "float32" else None)
+        k2, k4 = gather.launches, pool.launches
+        b = repro.train_run(cfg, tiles, DEVICE, recalib=RECALIB)
+        d = repro.distances(a, b)
+        log(f"  a. {dtype}, pool_backward {pb}: two runs of {REPRO_STEPS} steps at "
+            f"scales {a['scales']}, EMA + {RECALIB} recalibration batches "
+            f"({time.perf_counter() - t0:.1f} s); losses {[round(x, 5) for x in a['losses']]}; "
+            f"K2 {k2}, K4 {k4} launches a run; cuDNN deterministic/benchmark {a['cudnn']} [{card}]")
+        log("     " + _repro_line("run against its rerun", d))
+        want_k4 = 6 * REPRO_STEPS if pb == "pallas" else 0
+        if not (25 in a["scales"] and 65 in a["scales"]):
+            raise SystemExit(f"{dtype}: the run took no step at 25 or at 65 px")
+        if not all(map(math.isfinite, a["losses"])) or a["cudnn"] != (True, False):
+            raise SystemExit(f"{dtype}: non-finite losses or cuDNN not deterministic")
+        if k2 != REPRO_STEPS + RECALIB or k4 != want_k4:
+            raise SystemExit(f"{dtype}: launches K2 {k2}, K4 {k4} do not match the run")
+        _repro_require(f"{dtype} same-seed runs", d)
+        first[dtype] = a
+
+    free = repro.train_run(repro_config("pallas", "float32"), tiles, DEVICE,
+                           recalib=RECALIB, context=_cudnn_free)
+    log("  b. " + _repro_line("float32 with cuDNN's free choice vs a's run (a reading)",
+                              repro.distances(free, first["float32"])))
+    time_deterministic_steps(tiles, card, profile_dir)
+    # g's two processes run beside c-f (nothing after b is timed).
+    jobs = _start_fold_runs()
+    try:
+        _repro_reruns(tiles, variables, batches, ckpt, first, card)
+        _check_fold_runs(jobs, card)
+    finally:
+        for job in jobs:
+            if job[2].poll() is None:
+                job[2].kill()
+                job[2].wait()
+    log(f"phase 19 took {time.perf_counter() - t_phase:.1f} s")
+
+
+def _repro_reruns(tiles, variables, batches, ckpt: str, first: dict, card: str) -> None:
+    """Phase 19 c-f (see the module docstring)."""
+    from dynseg_torch import parallel
+    from dynseg_torch.probes import dp_parity, repro
+
+    again = [repro.train_run(repro_config("pallas", "float32"), tiles, DEVICE,
+                             niter=REPRO_RESUME_STEPS, restore_from=ckpt) for _ in range(2)]
+    d = repro.distances(*again)
+    log(f"  c. a's float32 checkpoint (step {REPRO_STEPS}) restored twice, "
+        f"{REPRO_RESUME_STEPS} more steps each at {again[0]['scales']}: "
+        + _repro_line("one against the other", d))
+    if again[0]["step"] != REPRO_STEPS + REPRO_RESUME_STEPS:
+        raise SystemExit("the restored runs did not continue from the checkpoint")
+    _repro_require("restored runs", d)
+
+    t0 = time.perf_counter()
+    step_case = (dp_parity.train_steps, (dp_train_config(2), tiles, variables, DP_SIZES,
+                                         batches), {"warm_up": True})
+    ranks = parallel.spawn(dp_parity.run_many, 2, [DP_DEVICE] * 2, "gloo",
+                           args=([step_case, step_case],))
+    for r, (x, y) in enumerate(ranks):
+        dstate = max(float(np.abs(x["state"][k].astype(np.float64) - v).max())
+                     for k, v in y["state"].items())
+        dmom = max(float(np.abs(x["momentum"][k] - v).max()) for k, v in y["momentum"].items())
+        log(f"  d. rank {r} of two gloo ranks sharing cuda:0, phase 18's {len(DP_SIZES)} "
+            f"steps twice: losses equal {x['losses'] == y['losses']}, max|dstate| "
+            f"{dstate:.2e}, max|dmomentum| {dmom:.2e}; cuDNN deterministic/benchmark "
+            f"{x['cudnn']} ({time.perf_counter() - t0:.1f} s for both ranks) [{card}]")
+        if x["losses"] != y["losses"] or dstate or dmom or x["cudnn"] != (True, False):
+            raise SystemExit(f"rank {r}: its rerun of the same steps differs")
+
+    _serving_reruns(card)
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        for pb, dtype in (("pallas", "float32"), ("xla", "bfloat16")):
+            got = repro.train_run(repro_config(pb, dtype), tiles, DEVICE, recalib=RECALIB)
+            log(f"  f. {dtype} under torch.use_deterministic_algorithms(True): ran "
+                f"without raising; " + _repro_line("against a's run", repro.distances(
+                    got, first[dtype])))
+            if not all(map(math.isfinite, got["losses"])):
+                raise SystemExit(f"{dtype}: non-finite losses under deterministic algorithms")
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def read_quant_min_ch(centred, int8_conv, f32_runs, f32_scores, card) -> None:
+    """Phase 20, a reading: quant_min_ch 64 against the default 128 on
+    phase 13's window int8 (1024^2) and dense int8 (2048^2) runs. At 64,
+    blocks 1-2 also run int8 through K5: first K5 at their geometries vs
+    plain, bitwise, at a dense batch and window batches; then each run's
+    Mpx/s, label agreement with the float32 run of its mode, and K5
+    launches by geometry and variant, the first launch of each geometry
+    held to plain bitwise."""
+    from dynseg_torch.infer import validate_test
+    from dynseg_torch.ops import quant
+
+    check_k5_serve_shapes(int8_conv, ((DENSE_BATCH, DENSE_EXT), (256, 25), (256, 65)),
+                          "quant_min_ch 64", LOW_GEOMETRIES)
+    dense_float = validate_test(config("dense", "none"), centred["dense"], f32_runs[2][2],
+                                DEVICE, log=lambda *_: None)
+    floats = {"window": f32_scores["window float"], "dense": dense_float}
+    packed = quant.int8_block_conv_packed
+    for name, base, tiles in f32_runs[1:]:
+        for min_ch in (128, 64):
+            cfg = dataclasses.replace(base, infer=dataclasses.replace(
+                base.infer, quant_min_ch=min_ch))
+            by_geometry, first = collections.Counter(), {}
+
+            def recorded(x, pc):
+                out = packed(x, pc)
+                key = (pc.cin, pc.cout, pc.k, pc.dilation, pc.variant)
+                by_geometry[key] += 1
+                if key not in first:
+                    first[key] = (x.clone(), pc, out.clone())
+                return out
+
+            int8_conv.reset_launches()
+            quant.int8_block_conv_packed = recorded
+            try:
+                t0 = time.perf_counter()
+                scores = validate_test(cfg, centred[cfg.infer.mode], tiles, DEVICE,
+                                       log=lambda *_: None)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            finally:
+                quant.int8_block_conv_packed = packed
+            same = {key: torch.equal(out, int8_conv.int8_block_conv_packed_ref(x, pc))
+                    for key, (x, pc, out) in first.items()}
+            log(f"  {name}, quant_min_ch {min_ch}: {mpx_s(tiles, scores):.3f} Mpx/s, call "
+                f"wall {wall:.3f} s, OA {scores['oa']:.4f}, label agreement with the "
+                f"float32 run {agreement(scores, floats[cfg.infer.mode]):.6f}; K5 "
+                f"launches {int8_conv.launches} [{card}]")
+            for key, count in sorted(by_geometry.items()):
+                log(f"    K5 {key[0]}->{key[1]} k{key[2]} d{key[3]} ({key[4]}): {count} "
+                    f"launches, first launch == plain bitwise: {same[key]}")
+            blocks = 5 if min_ch == 64 else 3
+            if (not all(same.values()) or len(by_geometry) != blocks
+                    or int8_conv.launches != sum(by_geometry.values())):
+                raise SystemExit(f"{name} quant_min_ch {min_ch}: K5 launches or results "
+                                 f"do not match")
+            del first
+            torch.cuda.empty_cache()
+
+
 def kernel_class(event: dict) -> str:
     """A device event's class in the serving summaries."""
     if event["cat"] != "kernel":
@@ -2092,12 +2470,35 @@ def profile_serving(out_dir: str, weights, runs) -> None:
                 f"{cls} {s:.4f} s ({s / busy:.3f})" for cls, s in by_class.most_common()))
 
 
+def profile_step(tr, st, size: int, path: str) -> tuple:
+    """torch.profiler over one train step at `size` (the caller warms it
+    up): its span in seconds and its kernel events, from a chrome trace
+    written to `path`."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tr.train_step(st, size)
+        torch.cuda.synchronize()
+        span = time.perf_counter() - t0
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        return span, [e for e in json.load(f)["traceEvents"] if e.get("cat") == "kernel"]
+
+
+def kernel_ms(kernels: list) -> collections.Counter:
+    """Device ms of kernel events by name (its first 90 characters)."""
+    by_name = collections.Counter()
+    for e in kernels:
+        by_name[e["name"][:90]] += e["dur"] / 1e3
+    return by_name
+
+
 def profile_train_steps(out_dir: str) -> None:
     """--profile: torch.profiler over one warm full-width train step per
     pool backward in float32, and with ATen's in bfloat16, at 25 and 65
     px; chrome traces and kernel sums."""
-    from torch.profiler import ProfilerActivity, profile
-
     from dynseg_torch import train
     from dynseg_torch.data.datasets import load_synthetic
 
@@ -2109,21 +2510,10 @@ def profile_train_steps(out_dir: str) -> None:
         for s in (25, 65):
             for _ in range(3):  # warm
                 tr.train_step(st, s)
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                tr.train_step(st, s)
-                torch.cuda.synchronize()
-                span = time.perf_counter() - t0
-            trace = os.path.join(out_dir, f"train_step_{pb}_{dtype}_{s}.json")
-            prof.export_chrome_trace(trace)
-            with open(trace) as f:
-                events = json.load(f)["traceEvents"]
-            kernels = [e for e in events if e.get("cat") == "kernel"]
+            span, kernels = profile_step(tr, st, s, os.path.join(
+                out_dir, f"train_step_{pb}_{dtype}_{s}.json"))
             busy = sum(e["dur"] for e in kernels) / 1e6
-            by_name = collections.Counter()
-            for e in kernels:
-                by_name[e["name"][:90]] += e["dur"] / 1e3
+            by_name = kernel_ms(kernels)
             copies = [e for e in kernels if any(
                 k in e["name"].lower() for k in ("copy", "transpose", "nchwtonhwc",
                                                  "nhwctonchw"))]
@@ -2177,6 +2567,7 @@ def main() -> int:
     k5.update(check_k5_bf16_out(int8_conv))
     centred, centred_scores, k5["bf16_out_launches"] = run_bf16_serving(
         weights, int8_conv, f32_runs, card)
+    read_quant_min_ch(centred, int8_conv, f32_runs, centred_scores, card)
     run_tta(centred, int8_conv, f32_runs[2], centred_scores["dense int8"], card)
     check_streaming(centred["window"], f32_runs[0], card)
     del weights, centred, f32_runs, f32_scores, centred_scores
@@ -2204,6 +2595,7 @@ def main() -> int:
     dp = run_data_parallel(gather, pool, int8_conv, card)
     k5["dp_rank_launches"], k2["dp_rank_launches"], k4["dp_rank_launches"] = (
         dp["k5"], dp["k2"], dp["k4"])
+    run_reproducibility(gather, pool, card, args.profile)
 
     def entry(name, source, replaces, k):
         # library_ms: no single PyTorch call computes any of the four

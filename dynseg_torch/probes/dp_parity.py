@@ -8,8 +8,9 @@ rank of `parallel.spawn`, and returns what the two are compared with.
     them); returns the losses, the state after each step and the final
     state with its momentum on the CPU, the global
     batches with tile ids into the unsharded set (so that one device can
-    replay them), each step's time, and this rank's K2/K4 launches beside
-    the gathers and pool backwards it ran;
+    replay them), each step's time, this rank's K2/K4 launches beside
+    the gathers and pool backwards it ran, and cuDNN's deterministic and
+    benchmark flags as the rank's Trainer left them;
   * `recalibrate`, `loop_scales`, `restore`: Trainer.recalibrate_batch_stats,
     the scales a train_loop chose, a restored checkpoint;
   * `predict`: an Inferencer on the given tiles (int8-calibrated under
@@ -107,7 +108,9 @@ def train_steps(cfg: Config, tiles: TileSet, variables: dict,
     pools = sum(1 for *_, p in arch(cfg.model) if p)
     out = {"losses": [], "accs": [], "ms": [], "batches": [], "states": [],
            "k2": 0, "k4": 0, "gathers": 0, "pool_bwds": 0,
-           "collective_calls": 0, "collective_ms": []}
+           "collective_calls": 0, "collective_ms": [],
+           "cudnn": (torch.backends.cudnn.deterministic,
+                     torch.backends.cudnn.benchmark)}
     if warm_up:
         t.compile_buckets(st)
     gather.launches = 0

@@ -17,7 +17,9 @@ momentum SGD updates the params:
 
 PyTorch runs eagerly, so the reference's per-bucket jit becomes one
 warm-up step per scale (`compile_buckets`: cuDNN picks its algorithms on
-a shape's first call). The fp32 convolutions run without TF32.
+a shape's first call). The fp32 convolutions run without TF32, and every
+convolution with cuDNN's deterministic algorithms, so that a seed gives
+the same run, as the reference's does (tests/test_torch_determinism.py).
 
 Data parallelism (`dynseg_torch.parallel`, one process per rank, as the
 reference's jit over a 1-D mesh): the step is the single-device step on
@@ -248,6 +250,12 @@ class Trainer:
         # decimal digits and would move the step away from the reference.
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
+        # The same seed gives the same run, as the reference's does: cuDNN
+        # may otherwise pick backward algorithms that sum with atomics, and
+        # the scheduler's draws turn that noise into another model. Every
+        # rank of a group sets it when it builds its Trainer.
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
         self.cfg = cfg
         self.device = resolve_device(device)
         self.scales = [int(v) for v in cfg.sched.values]

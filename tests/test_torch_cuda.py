@@ -320,6 +320,26 @@ def test_train_step_on_card_matches_cpu(cuda):
                                    rtol=0, atol=1e-6, err_msg=k)
 
 
+def test_training_is_bitwise_reproducible_on_the_card(cuda):
+    """Six steps of a width-0.25 net (multinomial over 25 and 45 px, batch
+    16, pool_backward pallas, EMA 0.9 with two recalibration batches) on
+    the card, twice from one seed: params, BN statistics, momentum, EMA,
+    recalibrated statistics, losses, scales and scheduler scores bitwise
+    equal (tolerance 0), with cuDNN's deterministic flag on."""
+    from dynseg_torch.config import Config, ModelConfig, SchedulerConfig, TrainConfig
+    from dynseg_torch.data.datasets import load_synthetic
+    from dynseg_torch.probes import repro
+
+    cfg = Config(model=ModelConfig(width_multiplier=0.25, pool_backward="pallas"),
+                 sched=SchedulerConfig(distribution_type="multinomial", values=(25, 45)),
+                 train=TrainConfig(batch_size=16, niter=6, ema_decay=0.9))
+    tiles = load_synthetic(seed=0, num_tiles=2, size=96)[0]
+    a, b = (repro.train_run(cfg, tiles, cuda, recalib=2) for _ in range(2))
+    assert a["cudnn"] == (True, False) and len(a["losses"]) == 6
+    assert all(np.isfinite(a["losses"]))
+    assert all(d == 0.0 for d in repro.distances(a, b).values()), repro.distances(a, b)
+
+
 # P1's (B, H, W, C, dilation): the TPU probe's check shapes, then ragged
 # ones: odd H and W, B 3, C 32 and 160 (a half K chunk), dilations 1, 2,
 # 5, 6, a dilation wider than the image, and a 1 x 1 image; then C 512 (two

@@ -221,6 +221,14 @@ def test_two_rank_steps_match_the_single_device_step(run):
         np.testing.assert_allclose(two["momentum"][k], v, rtol=1e-3, atol=1e-5, err_msg=k)
 
 
+def test_spawned_ranks_ask_cudnn_for_deterministic_algorithms(run):
+    """Each rank is a fresh process (the spawn start method): its Trainer
+    sets cuDNN's deterministic flag and clears benchmark there too."""
+    for r in run["ranks"]:
+        assert r["steps"]["cudnn"] == (True, False)
+        assert r["shard"]["cudnn"] == (True, False)
+
+
 def test_ranks_end_bitwise_equal(run):
     """Every rank applies the same summed gradient and the same global
     statistics: the states are equal bit for bit."""
