@@ -192,8 +192,29 @@ runs without them.
      mode, and K5 launches by geometry and variant, the first launch of
      each geometry bitwise to plain.
 
+ 21. the production-scale rehearsals, after phase 19, each `python -m
+     dynseg_torch.probes.<name>` in a process of its own (cuDNN's
+     process-wide flags and the host RSS stay the probe's own) at its
+     defaults, the scripts' own, but for one cut the time limit forces:
+     a. stress_scale (20 x 3000^2 uint8 training tiles, 180 Mpx,
+     position tables capped at 2,000,000 a class, 6 classes, dynamic
+     5-scale training with area-rescaled batches, steps_per_call 8,
+     metric_fetch_depth 4, then validate_test dense and window on two
+     3000^2 test tiles): tile storage uint8, every logged loss finite,
+     the mean chunk loss of the last quarter below the first's, OA and
+     mean F1 printed for both modes, K2's launches equal to the gathers
+     the run made, and K2 bitwise to plain on one real batch of each of
+     the five buckets (B = 100, 51, 31, 21, 15) on the 20-tile stack; b.
+     profile_multitile (four odd-shaped uint8 tiles, 12 Mpx), voting
+     over scales 25 and 65 (--scales, the cut): pass 2's label maps
+     equal pass 1's; c. sweep_dense (a 2048^2 tile, blocks 256 to 1024,
+     float32 and bfloat16): every agreement with the float32 block-512
+     labels printed. Each probe's lines are repeated here with its exit
+     code and wall time; its whole output is in
+     smoke_out/rehearsal_<name>.log.
+
 Phases 12-15 and 20 run after phase 4, phase 16 after phase 8 and phases
-17-19 after phase 11, each beside the phase it is compared with.
+17-19 and 21 after phase 11, each beside the phase it is compared with.
 
 With --profile DIR, it also traces one warm call of each serving run and
 one warm train step per pool backward with torch.profiler, and writes the
@@ -314,6 +335,15 @@ FOLDS_NITER = 10
 # Phase 20: blocks 1-2 of dilated_icpr_rate6 at width 1.0, which
 # quant_min_ch 64 also quantizes (the default 128 leaves them float).
 LOW_GEOMETRIES = (("block1", 64, 64, 5, 2, True), ("block2", 64, 128, 4, 3, True))
+# Phase 21: the rehearsals in order, each with the arguments it runs with,
+# and the batches of stress_scale's buckets, 100 x (25 / s)^2 for s =
+# 25..65. Every probe runs at its defaults (the scripts' own) but for one
+# cut through its own flags, which the script's time limit forces:
+# profile_multitile votes over scales 25 and 65, not all five (its window
+# passes take ~38 s each at five scales on the H100, PERF.md §4).
+REHEARSALS = (("stress_scale", ()), ("profile_multitile", ("--scales", "25,65")),
+              ("sweep_dense", ()))
+STRESS_BATCHES = (100, 51, 31, 21, 15)
 
 
 def log(msg: str) -> None:
@@ -2363,6 +2393,75 @@ def _repro_reruns(tiles, variables, batches, ckpt: str, first: dict, card: str) 
         torch.use_deterministic_algorithms(False)
 
 
+def _rehearsal(name: str, argv, card: str) -> str:
+    """One rehearsal, `python -m dynseg_torch.probes.<name>`, in a process
+    of its own; its output goes to smoke_out/rehearsal_<name>.log and is
+    repeated here. Exits on a non-zero exit code."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    path = os.path.join(root, OUT_DIR, f"rehearsal_{name}.log")
+    t0 = time.perf_counter()
+    with open(path, "w") as f:
+        rc = subprocess.run([sys.executable, "-m", f"dynseg_torch.probes.{name}", *argv],
+                            stdout=f, stderr=subprocess.STDOUT, cwd=root,
+                            timeout=900).returncode
+    with open(path) as f:
+        text = f.read()
+    log(f"rehearsal {name} {' '.join(argv) or '(defaults)'}: exit {rc}, wall "
+        f"{time.perf_counter() - t0:.1f} s [{card}]")
+    for line in text.splitlines():
+        if "Warning" not in line and not line.startswith("  return F."):
+            log(f"  {line}")
+    if rc != 0:
+        raise SystemExit(f"rehearsal {name} exited {rc}")
+    return text
+
+
+def _check_stress(text: str) -> int:
+    """Phase 21a's checks on stress_scale's output; returns K2's launches."""
+    if "tile storage uint8" not in text:
+        raise SystemExit("stress_scale: the training tiles are not stored as uint8")
+    logged = [float(v) for v in re.findall(r"^  iter \d+/\d+ scale=\d+ loss=(\S+)", text, re.M)]
+    chunks = re.search(r"^loss by chunk: (\d+) chunks of \d+ steps, all finite: (\w+); "
+                       r"mean of the first \d+ (\S+), of the last \d+ (\S+)$", text, re.M)
+    if not logged or not all(map(math.isfinite, logged)) or not chunks:
+        raise SystemExit(f"stress_scale: logged losses {logged}, or no chunk summary")
+    first, last = float(chunks.group(3)), float(chunks.group(4))
+    if chunks.group(2) != "True" or not last < first:
+        raise SystemExit(f"stress_scale: chunk losses not finite or not falling "
+                         f"({first} -> {last})")
+    for mode in ("dense", "window"):
+        if not re.search(rf"^validate_test\[{mode}\] .* OA=[0-9.]+ meanF1=[0-9.]+ ",
+                         text, re.M):
+            raise SystemExit(f"stress_scale: no OA / meanF1 for {mode} mode")
+    k2 = re.search(r"^K2 launches: (\d+) \(gathers (\d+):", text, re.M)
+    if not k2 or int(k2.group(1)) != int(k2.group(2)) or int(k2.group(1)) == 0:
+        raise SystemExit(f"stress_scale: K2 launches do not equal the gathers "
+                         f"({k2 and k2.groups()})")
+    checks = re.findall(r"^K2 real batch B=(\d+) s=(\d+) .*: bitwise: (\w+)$", text, re.M)
+    if ([int(b) for b, _, _ in checks] != list(STRESS_BATCHES)
+            or any(ok != "True" for _, _, ok in checks)):
+        raise SystemExit(f"stress_scale: K2 vs plain on the real batches: {checks}")
+    return int(k2.group(1))
+
+
+def run_rehearsals(card: str) -> int:
+    """Phase 21: the three production-scale rehearsals (see the module
+    docstring); returns K2's launches in stress_scale."""
+    t_phase = time.perf_counter()
+    texts = {name: _rehearsal(name, argv, card) for name, argv in REHEARSALS}
+    k2 = _check_stress(texts["stress_scale"])
+    if "pass2 labels == pass1 labels: True" not in texts["profile_multitile"]:
+        raise SystemExit("profile_multitile: pass 2's label maps differ from pass 1's")
+    agree = re.findall(r"^(float32|bfloat16) block=(\d+) .* agree\(ref\)=([0-9.]+) ",
+                       texts["sweep_dense"], re.M)
+    if len(agree) != 10:
+        raise SystemExit(f"sweep_dense: {len(agree)} agreements printed, not 10")
+    log(f"  K2 launches in stress_scale {k2} = its gathers; agreements "
+        f"{[(d, int(b), float(a)) for d, b, a in agree]}")
+    log(f"phase 21 took {time.perf_counter() - t_phase:.1f} s")
+    return k2
+
+
 def read_quant_min_ch(centred, int8_conv, f32_runs, f32_scores, card) -> None:
     """Phase 20, a reading: quant_min_ch 64 against the default 128 on
     phase 13's window int8 (1024^2) and dense int8 (2048^2) runs. At 64,
@@ -2596,6 +2695,8 @@ def main() -> int:
     k5["dp_rank_launches"], k2["dp_rank_launches"], k4["dp_rank_launches"] = (
         dp["k5"], dp["k2"], dp["k4"])
     run_reproducibility(gather, pool, card, args.profile)
+    torch.cuda.empty_cache()
+    k2["stress_launches"] = run_rehearsals(card)
 
     def entry(name, source, replaces, k):
         # library_ms: no single PyTorch call computes any of the four
@@ -2603,10 +2704,11 @@ def main() -> int:
         # tie to the first max; the gather fuses crop, normalise and labels).
         # K5 adds its bf16 store's time, bound and launches (phases 12-13)
         # and its launches in the HTTP server over phase 17's requests; K5,
-        # K2 and K4 each rank's launches in phase 18.
+        # K2 and K4 each rank's launches in phase 18; K2 its launches in
+        # phase 21's production rehearsal.
         extra = {key: k[key] for key in ("bf16_out_ms", "bf16_out_bound_ms",
                                          "bf16_out_launches", "serve_launches",
-                                         "dp_rank_launches")
+                                         "dp_rank_launches", "stress_launches")
                  if key in k}
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": k["launches"],

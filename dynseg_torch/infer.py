@@ -454,10 +454,12 @@ def validate_test(
 ) -> Dict[str, object]:
     """Predict every test tile on `device` and report OA / kappa /
     per-class F1 / confusion, plus the per-tile label maps, like dynseg's
-    validate_test. `variables` is the port's float state_dict (moved to
-    `device` where it lies elsewhere); `scales` overrides the inference
-    scales (the scheduler's top-K). Under a data-parallel group every rank runs
-    the forwards of its share and scores the same maps; only rank 0 logs."""
+    validate_test, and the largest tensor collected for a window fold
+    ("fold_peak_bytes", 0 in dense mode). `variables` is the port's float
+    state_dict (moved to `device` where it lies elsewhere); `scales`
+    overrides the inference scales (the scheduler's top-K). Under a
+    data-parallel group every rank runs the forwards of its share and
+    scores the same maps; only rank 0 logs."""
     if not parallel.is_main():
         log = _quiet
     inf = Inferencer(cfg, test_tiles, device=device)
@@ -488,10 +490,13 @@ def validate_test(
         labels = torch.from_numpy(np.ascontiguousarray(mask)).to(device)
         return confusion_matrix(pred, labels, nc).cpu().numpy()
 
+    # The largest tensor collected for a window fold over the tiles.
+    fold_peak = 0
     # After Inferencer setup and calibration: pure predict + score time.
     t_infer0 = time.perf_counter()
     for t in range(test_tiles.num_tiles):
         pred = inf.predict_tile_device(variables, t, scales)
+        fold_peak = max(fold_peak, inf.fold_peak_bytes)
         h, w = (int(x) for x in test_tiles.valid_hw[t])
         gt = test_tiles.masks[t, :h, :w]
         tcm = tile_cm(pred, gt)
@@ -507,6 +512,7 @@ def validate_test(
     scores = scores_from_confusion(cm)
     scores["predictions"] = preds
     scores["infer_wall_s"] = round(time.perf_counter() - t_infer0, 4)
+    scores["fold_peak_bytes"] = fold_peak
     log(
         f"TOTAL: OA={scores['oa']:.4f} kappa={scores['kappa']:.4f} "
         f"meanF1={scores['mean_f1']:.4f} "

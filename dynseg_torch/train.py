@@ -283,7 +283,9 @@ class Trainer:
         # Mirror-pad once so a patch of any scheduled size centred on a
         # valid pixel stays inside; tiles smaller than the pack see their
         # own mirrored context. Masks stay IGNORE in the pad.
+        t0 = time.perf_counter()
         padded = fill_padded_context(mirror_pad(train_tiles, self.pad), self.pad)
+        t1 = time.perf_counter()
         sampler_kw = dict(num_classes=cfg.model.num_classes, pad=self.pad,
                           balanced=cfg.data.balanced_sampling,
                           max_positions_per_class=cfg.data.max_positions_per_class)
@@ -315,7 +317,12 @@ class Trainer:
             self.sampler = BalancedPatchSampler(padded, seed=cfg.train.seed,
                                                 **sampler_kw)
             self.samplers = [self.sampler]
+        t2 = time.perf_counter()
         self.images, self.masks, self.mean, self.std = self._upload(padded)
+        # Host seconds of the set-up: mirror padding, the position tables,
+        # and the upload (a blocking copy from pageable memory).
+        self.setup_s = {"pad": t1 - t0, "tables": t2 - t1,
+                        "upload": time.perf_counter() - t2}
         self.dropout_gen = torch.Generator(device=self.device)
         self.dropout_gen.manual_seed(cfg.train.seed + 1)
         # (scale, patches, start mark, end mark) of the train_step calls not

@@ -193,6 +193,35 @@ def test_gather_kernel_matches_plain_bitwise(cuda, case):
     assert torch.equal(gi, wi) and torch.equal(gl, wl)
 
 
+@pytest.mark.parametrize("b, size", [(15, 65), (51, 35)])
+def test_gather_kernel_on_the_rehearsal_stack_matches_plain_bitwise(cuda, b, size):
+    """K2 at two of the production rehearsal's area-rescaled batches
+    (probes.stress_scale: B = 100 (25 / s)^2) on a stack of its size, 20
+    uint8 tiles of 3066^2 x 3 (3000^2 mirror-padded by 33), with a patch
+    on every tile and at both corners of the last."""
+    t, hw, c = 20, 3066, 3
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(b)
+    images = torch.randint(0, 256, (t, hw, hw, c), generator=gen, device=cuda,
+                           dtype=torch.uint8)
+    masks = torch.randint(0, 6, (t, hw, hw), generator=gen, device=cuda, dtype=torch.uint8)
+    mean = torch.tensor([120.0, 110.5, 99.25], device=cuda)
+    std = torch.tensor([40.0, 37.3, 51.7], device=cuda)
+    rng = np.random.default_rng(b)
+    half = size // 2
+    pos = np.stack([np.arange(b) % t, rng.integers(half, hw - size + half + 1, b),
+                    rng.integers(half, hw - size + half + 1, b)], 1)
+    pos[:2] = [[t - 1, half, half], [t - 1, hw - size + half, hw - size + half]]
+    args = (images, masks, mean, std, torch.from_numpy(pos.astype(np.int32)).to(cuda),
+            torch.from_numpy((np.arange(b) % 8).astype(np.int32)).to(cuda))
+    before = gather.launches
+    gi, gl = gather.gather_batch(*args, size)
+    assert gather.launches == before + 1
+    wi, wl = gather.gather_batch_ref(*args, size)
+    torch.cuda.synchronize()
+    assert torch.equal(gi, wi) and torch.equal(gl, wl)
+
+
 # (B, H, W, C, window, ties): the slice's pool shapes at batch 2 and the
 # largest at its full batch, then ragged ones: C 3 and 5, H or W of 1, H
 # and W not a multiple of the fused tile, window 5 and 7.
