@@ -213,8 +213,24 @@ runs without them.
      code and wall time; its whole output is in
      smoke_out/rehearsal_<name>.log.
 
+ 22. the accuracy studies, after phase 21, each `python -m
+     dynseg_torch.probes.<name>` in a process of its own, cut through its
+     own flags only: sched_ablation (--values 25,65, multinomial, one
+     seed, 300 iterations, area-rescaled batches), mode_gap and bf16_eval
+     (one seed, 300 iterations), parity_bracket (the texture set, the
+     first 2 combinations, one seed, 100 iterations), diagnose_collapse
+     (multinomial:0, 300 iterations, eval every 100, EMA 0.999, the cell
+     kept), then ema_recalib_probe on that cell (N = 25, 50); the five
+     lanes run side by side on the card, so their wall times and ms/step
+     are contended. Each must exit 0 and write a JSON with the script's
+     top-level keys and every OA in (0, 1];
+     K2's launches in each training run equal its gathers, and K2 is
+     bitwise to plain on one batch of each bucket of each run, among them
+     the batch of 64 rescaled by area (B = 64 / 33 / 20 / 13 / 9 at s =
+     25..65). Logs in smoke_out/study_<name>.log, JSONs beside them.
+
 Phases 12-15 and 20 run after phase 4, phase 16 after phase 8 and phases
-17-19 and 21 after phase 11, each beside the phase it is compared with.
+17-19, 21 and 22 after phase 11, each beside the phase it is compared with.
 
 With --profile DIR, it also traces one warm call of each serving run and
 one warm train step per pool backward with torch.profiler, and writes the
@@ -232,6 +248,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import concurrent.futures
 import dataclasses
 import importlib.abc
 import io
@@ -243,6 +260,7 @@ import shutil
 import signal
 import subprocess
 import sys
+import threading
 import time
 import warnings
 
@@ -344,6 +362,44 @@ LOW_GEOMETRIES = (("block1", 64, 64, 5, 2, True), ("block2", 64, 128, 4, 3, True
 REHEARSALS = (("stress_scale", ()), ("profile_multitile", ("--scales", "25,65")),
               ("sweep_dense", ()))
 STRESS_BATCHES = (100, 51, 31, 21, 15)
+# Phase 22: the accuracy studies in order, each cut through its own flags
+# only (fewer seeds, configs and iterations); ema_recalib_probe reads the
+# EMA cell that diagnose_collapse keeps, so the two share a lane; the
+# other studies run side by side. The top-level keys of each script's
+# JSON (of each row, for parity_bracket's list; the CPU tests hold every
+# level of each JSON byte for byte to the script's). K2's buckets that the studies' batch of 64
+# rescaled by area gives at s = 25..65 (mode_gap's multinomial regime).
+STUDIES = (
+    ("sched_ablation", ("--values", "25,65", "--distributions", "multinomial",
+                        "--seeds", "1", "--niter", "300", "--rescale_batch_by_area")),
+    ("mode_gap", ("--seeds", "1", "--niter", "300")),
+    ("bf16_eval", ("--seeds", "1", "--niter", "300")),
+    ("parity_bracket", ("--dataset", "synthetic_texture", "--combos", "2", "--seeds", "1",
+                        "--niter", "100")),
+    ("diagnose_collapse", ("--runs", "multinomial:0", "--niter", "300", "--eval_every",
+                           "100", "--ema_decay", "0.999", "--keep_checkpoints",
+                           "--workdir", os.path.join(OUT_DIR, "collapse"))),
+    ("ema_recalib_probe", ("--ckpt", os.path.join(OUT_DIR, "collapse", "multinomial_s0"),
+                           "--seed", "0", "--recalib_batches", "25,50")),
+)
+STUDY_KEYS = {
+    "sched_ablation": {"dataset", "values", "niter", "batch_size", "seeds", "seed_start",
+                       "net_type", "update_type", "sched_temperature", "distributions",
+                       "tag", "rescale_batch_by_area", "dataset_kwargs", "results"},
+    "mode_gap": {"dataset", "niter", "seeds", "rows", "summary"},
+    "bf16_eval": {"window_oa_f32", "window_oa_bf16", "dense_oa_f32", "dense_oa_bf16",
+                  "per_seed", "protocol"},
+    "parity_bracket": {"favor_high_score", "update_type", "leaky_slope", "use_batch_norm",
+                       "mean_f1", "per_seed"},
+    "diagnose_collapse": {"tag", "dataset", "dataset_kwargs", "niter", "batch_size",
+                          "learning_rate", "lr_decay_rate", "lr_decay_steps",
+                          "no_batch_norm", "bn_momentum", "compute_dtype", "ema_decay",
+                          "width_multiplier", "eval_every", "results", "partial"},
+    "ema_recalib_probe": {"ckpt", "step", "seed", "ema_decay", "raw_final", "ema_live_bn",
+                          "ema_recalibrated"},
+}
+STUDY_BUCKETS = {(64, 25), (33, 35), (20, 45), (13, 55), (9, 65)}
+_LOG_LOCK = threading.Lock()
 
 
 def log(msg: str) -> None:
@@ -2393,12 +2449,13 @@ def _repro_reruns(tiles, variables, batches, ckpt: str, first: dict, card: str) 
         torch.use_deterministic_algorithms(False)
 
 
-def _rehearsal(name: str, argv, card: str) -> str:
-    """One rehearsal, `python -m dynseg_torch.probes.<name>`, in a process
-    of its own; its output goes to smoke_out/rehearsal_<name>.log and is
-    repeated here. Exits on a non-zero exit code."""
+def _rehearsal(name: str, argv, card: str, kind: str = "rehearsal") -> str:
+    """One probe, `python -m dynseg_torch.probes.<name>`, in a process of
+    its own; its output goes to smoke_out/<kind>_<name>.log and is
+    repeated here, in one piece when probes run side by side. Exits on a
+    non-zero exit code."""
     root = os.path.dirname(os.path.abspath(__file__))
-    path = os.path.join(root, OUT_DIR, f"rehearsal_{name}.log")
+    path = os.path.join(root, OUT_DIR, f"{kind}_{name}.log")
     t0 = time.perf_counter()
     with open(path, "w") as f:
         rc = subprocess.run([sys.executable, "-m", f"dynseg_torch.probes.{name}", *argv],
@@ -2406,13 +2463,14 @@ def _rehearsal(name: str, argv, card: str) -> str:
                             timeout=900).returncode
     with open(path) as f:
         text = f.read()
-    log(f"rehearsal {name} {' '.join(argv) or '(defaults)'}: exit {rc}, wall "
-        f"{time.perf_counter() - t0:.1f} s [{card}]")
-    for line in text.splitlines():
-        if "Warning" not in line and not line.startswith("  return F."):
-            log(f"  {line}")
+    lines = [f"{kind} {name} {' '.join(argv) or '(defaults)'}: exit {rc}, wall "
+             f"{time.perf_counter() - t0:.1f} s [{card}]"]
+    lines += [f"  {line}" for line in text.splitlines()
+              if "Warning" not in line and not line.startswith("  return F.")]
+    with _LOG_LOCK:
+        log("\n".join(lines))
     if rc != 0:
-        raise SystemExit(f"rehearsal {name} exited {rc}")
+        raise SystemExit(f"{kind} {name} exited {rc}")
     return text
 
 
@@ -2460,6 +2518,82 @@ def run_rehearsals(card: str) -> int:
         f"{[(d, int(b), float(a)) for d, b, a in agree]}")
     log(f"phase 21 took {time.perf_counter() - t_phase:.1f} s")
     return k2
+
+
+def _study_checks(name: str, payload) -> list:
+    """Phase 22's checks on one study's JSON: its top-level keys are the
+    script's (STUDY_KEYS), and every OA (and, in parity_bracket, every
+    mean F1; not mode_gap's gap) lies in (0, 1]. Returns the scores
+    checked."""
+    for row in payload if isinstance(payload, list) else [payload]:
+        if set(row) != STUDY_KEYS[name]:
+            raise SystemExit(f"study {name}: top-level keys {sorted(row)}, not the "
+                             f"script's {sorted(STUDY_KEYS[name])}")
+    scores = []
+
+    def collect(obj):
+        if isinstance(obj, dict):
+            for k, v in obj.items():
+                oa = k == "oa" or k.startswith("oa_") or ("_oa" in k and k != "gap_oa")
+                f1 = name == "parity_bracket" and k == "mean_f1"
+                if (oa or f1) and isinstance(v, (int, float)):
+                    scores.append(float(v))
+                else:
+                    collect(v)
+        elif isinstance(obj, list):
+            for v in obj:
+                collect(v)
+
+    collect(payload)
+    if not scores or not all(0.0 < v <= 1.0 for v in scores):
+        raise SystemExit(f"study {name}: scores outside (0, 1]: {scores}")
+    return scores
+
+
+def run_studies(card: str) -> int:
+    """Phase 22: the accuracy studies (see the module docstring); returns
+    K2's launches over them."""
+    t_phase = time.perf_counter()
+    shutil.rmtree(os.path.join(OUT_DIR, "collapse"), ignore_errors=True)
+    outs = {name: os.path.join(OUT_DIR, f"study_{name}.json") for name, _ in STUDIES}
+    lanes = []
+    for name, argv in STUDIES:
+        if name == "ema_recalib_probe":  # reads the cell diagnose_collapse keeps
+            lanes[-1].append((name, argv))
+        else:
+            lanes.append([(name, argv)])
+
+    def lane(studies):
+        return [(name, _rehearsal(name, [*argv, "--out", outs[name]], card, kind="study"))
+                for name, argv in studies]
+
+    with concurrent.futures.ThreadPoolExecutor(len(lanes)) as pool:
+        futures = [pool.submit(lane, studies) for studies in lanes]
+        texts = dict(pair for fut in futures for pair in fut.result())
+    launches, buckets = 0, set()
+    for name, _ in STUDIES:
+        text, out = texts[name], outs[name]
+        with open(out) as f:
+            scores = _study_checks(name, json.load(f))
+        k2 = re.findall(r"^    K2 launches: (\d+) \(gathers (\d+):", text, re.M)
+        if not k2 or any(int(n) != int(g) or int(n) == 0 for n, g in k2):
+            raise SystemExit(f"study {name}: K2 launches against gathers {k2}")
+        checks = re.findall(r"^    K2 real batch B=(\d+) s=(\d+) \(kernel vs plain\): "
+                            r"bitwise: (\w+)$", text, re.M)
+        if not checks or any(ok != "True" for _, _, ok in checks):
+            raise SystemExit(f"study {name}: K2 vs plain on the real batches: {checks}")
+        launches += sum(int(n) for n, _ in k2)
+        buckets |= {(int(b), int(s)) for b, s, _ in checks}
+        log(f"  study {name}: top-level JSON keys are the script's, {len(scores)} scores in "
+            f"(0, 1] ({min(scores):.4f}..{max(scores):.4f}); K2 launches "
+            f"{[int(n) for n, _ in k2]} = the gathers; K2 bitwise at (B, s) "
+            f"{sorted({(int(b), int(s)) for b, s, _ in checks})}")
+    if not STUDY_BUCKETS <= buckets:
+        raise SystemExit(f"phase 22: K2 not checked at {sorted(STUDY_BUCKETS - buckets)}")
+    log(f"  K2 in the studies: {launches} launches, bitwise at the area-rescaled "
+        f"buckets {sorted(STUDY_BUCKETS)} and at {sorted(buckets - STUDY_BUCKETS)}")
+    log(f"phase 22 took {time.perf_counter() - t_phase:.1f} s")
+    return launches
 
 
 def read_quant_min_ch(centred, int8_conv, f32_runs, f32_scores, card) -> None:
@@ -2697,6 +2831,7 @@ def main() -> int:
     run_reproducibility(gather, pool, card, args.profile)
     torch.cuda.empty_cache()
     k2["stress_launches"] = run_rehearsals(card)
+    k2["study_launches"] = run_studies(card)
 
     def entry(name, source, replaces, k):
         # library_ms: no single PyTorch call computes any of the four
@@ -2705,10 +2840,11 @@ def main() -> int:
         # K5 adds its bf16 store's time, bound and launches (phases 12-13)
         # and its launches in the HTTP server over phase 17's requests; K5,
         # K2 and K4 each rank's launches in phase 18; K2 its launches in
-        # phase 21's production rehearsal.
+        # phase 21's production rehearsal and over phase 22's studies.
         extra = {key: k[key] for key in ("bf16_out_ms", "bf16_out_bound_ms",
                                          "bf16_out_launches", "serve_launches",
-                                         "dp_rank_launches", "stress_launches")
+                                         "dp_rank_launches", "stress_launches",
+                                         "study_launches")
                  if key in k}
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": k["launches"],

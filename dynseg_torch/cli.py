@@ -685,13 +685,16 @@ def _write_scores(cfg: Config, scores: dict, scales=None) -> None:
 
 
 def run_training(cfg: Config, log=print, keep_best: bool = False, *,
-                 device) -> dict:
+                 device, on_trainer=None) -> dict:
     """Train per `cfg` on `device` with checkpoints in
     cfg.train.output_path, then score the test tiles with the weights that
     would be served. Returns validate_test's scores plus "train_steps",
     the per-scale step times of the loop (Trainer.step_stats); a run
     stopped by SIGTERM/SIGINT returns {"preempted": True, "iteration"}.
-    In a data-parallel group every rank calls it; rank 0 alone writes."""
+    `on_trainer`, if given, is called with the run's Trainer once it is
+    built (a probe keeps it to check the kernels on the run's own tiles
+    after the run). In a data-parallel group every rank calls it; rank 0
+    alone writes."""
     from dynseg_torch import parallel
     from dynseg_torch.bridge import torch_to_flax
     from dynseg_torch.checkpoint import CheckpointManager
@@ -709,6 +712,8 @@ def run_training(cfg: Config, log=print, keep_best: bool = False, *,
     os.makedirs(cfg.train.output_path, exist_ok=True)
 
     trainer = Trainer(cfg, train_tiles, device)
+    if on_trainer is not None:
+        on_trainer(trainer)
     scheduler = ScaleScheduler(cfg.sched, seed=cfg.train.seed)
     ckpt = CheckpointManager(cfg.train.output_path)
     if not cfg.train.resume and ckpt.reset_for_fresh_run():

@@ -547,12 +547,14 @@ class Trainer:
         return self._upload(padded), padded
 
     def recalibrate_batch_stats(self, variables: Dict[str, torch.Tensor],
-                                n_batches: int) -> Dict[str, torch.Tensor]:
+                                n_batches: int, start: int = 0) -> Dict[str, torch.Tensor]:
         """Recompute the BatchNorm running statistics for the weights in
         `variables` (a state_dict on the device): n_batches train-mode
         forwards, params frozen, over freshly sampled batches cycling the
-        trained scales. Returns the state_dict with the new statistics,
-        or `variables` itself when n_batches <= 0."""
+        trained scales from the one at index `start` (a caller that goes
+        on from an earlier call's statistics passes the forwards made so
+        far). Returns the state_dict with the new statistics, or
+        `variables` itself when n_batches <= 0."""
         if n_batches <= 0:
             return variables
         model = build_model(self.cfg.model, self.num_bands).to(self.device)
@@ -562,7 +564,7 @@ class Trainer:
         gen.manual_seed(0)
         with torch.no_grad():
             for i in range(n_batches):
-                scale = self.scales[i % len(self.scales)]
+                scale = self.scales[(start + i) % len(self.scales)]
                 pos, aug = self.make_batch_inputs(scale)
                 imgs, _ = gather_batch(self.images, self.masks, self.mean,
                                        self.std, pos[0], aug[0], scale)
