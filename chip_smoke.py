@@ -229,8 +229,21 @@ runs without them.
      the batch of 64 rescaled by area (B = 64 / 33 / 20 / 13 / 9 at s =
      25..65). Logs in smoke_out/study_<name>.log, JSONs beside them.
 
+ 23. the reference's initial weights, after phase 22: on this host, the
+     full-width dilated_icpr_rate6 init (3 bands, 2 and 6 classes, seeds
+     0-4) that `Trainer.init_state(seed)` draws in numpy
+     (`bridge.init_variables_like_reference`), each tree's SHA-256 equal
+     to the digest pinned in `bridge.REFERENCE_INIT_SHA256` (the JAX
+     package's `init_state(jax.random.key(seed))`, which the CPU tests
+     hold the draw to); the same digest read back from a Trainer's model
+     on the card; then one cut paired run through the command line,
+     `python -m dynseg_torch.probes.sched_ablation` at single_fixed@35,
+     seed 0, 300 iterations, batch 64: its OA (no JAX run exists at this
+     cut, so nothing is compared), K2's launches equal to its gathers and
+     K2 bitwise to plain on its batch. Log in smoke_out/paired_sched_ablation.log.
+
 Phases 12-15 and 20 run after phase 4, phase 16 after phase 8 and phases
-17-19, 21 and 22 after phase 11, each beside the phase it is compared with.
+17-19 and 21-23 after phase 11, each beside the phase it is compared with.
 
 With --profile DIR, it also traces one warm call of each serving run and
 one warm train step per pool backward with torch.profiler, and writes the
@@ -399,6 +412,9 @@ STUDY_KEYS = {
                           "ema_recalibrated"},
 }
 STUDY_BUCKETS = {(64, 25), (33, 35), (20, 45), (13, 55), (9, 65)}
+# Phase 23: one run of the paired scheduler ablation, cut as phase 22's.
+PAIRED_RUN = ("--values", "35", "--distributions", "", "--seeds", "1", "--niter", "300",
+              "--batch_size", "64", "--rescale_batch_by_area")
 _LOG_LOCK = threading.Lock()
 
 
@@ -2596,6 +2612,59 @@ def run_studies(card: str) -> int:
     return launches
 
 
+def run_reference_init(card: str) -> None:
+    """Phase 23: the reference's init drawn on this host against the
+    pinned digests, read back from a Trainer on the card, then one cut
+    paired run through the command line."""
+    from dynseg_torch import bridge
+    from dynseg_torch.config import ModelConfig
+    from dynseg_torch.data.datasets import load_synthetic
+    from dynseg_torch.train import Trainer
+
+    t_phase = time.perf_counter()
+    for (classes, seed), pin in sorted(bridge.REFERENCE_INIT_SHA256.items()):
+        cfg = ModelConfig(net_type="dilated_icpr_rate6", num_classes=classes,
+                          num_input_bands=3, width_multiplier=1.0)
+        t0 = time.perf_counter()
+        digest = bridge.variables_sha256(bridge.init_variables_like_reference(cfg, 3, seed))
+        log(f"  reference init, dilated_icpr_rate6 x1.0, 3 bands, {classes} classes, seed "
+            f"{seed}: sha256 {digest} ({time.perf_counter() - t0:.2f} s), pinned: "
+            f"{digest == pin}")
+        if digest != pin:
+            raise SystemExit(f"phase 23: the init of ({classes} classes, seed {seed}) is "
+                             f"not the pinned one ({pin})")
+    tr = Trainer(train_config("xla", 1, False), load_synthetic(seed=0, num_tiles=2, size=64)[0],
+                 device=DEVICE)
+    sd = {k: v.cpu() for k, v in tr.init_state(0).model.state_dict().items()}
+    on_card = bridge.variables_sha256(bridge.torch_to_flax(sd))
+    log(f"  Trainer.init_state(0) on {DEVICE}, read back: sha256 {on_card}, pinned: "
+        f"{on_card == bridge.REFERENCE_INIT_SHA256[2, 0]}")
+    if on_card != bridge.REFERENCE_INIT_SHA256[2, 0]:
+        raise SystemExit("phase 23: the Trainer's init on the card is not the pinned one")
+    del tr, sd
+    torch.cuda.empty_cache()
+    out = os.path.join(OUT_DIR, "paired_sched_ablation.json")
+    text = _rehearsal("sched_ablation", [*PAIRED_RUN, "--out", out], card, kind="paired")
+    with open(out) as f:
+        payload = json.load(f)
+    runs = [(r["config"], run) for r in payload["results"] for run in r["runs"]]
+    if [(name, run["seed"]) for name, run in runs] != [("single_fixed@35", 0)]:
+        raise SystemExit(f"phase 23: the paired run is not single_fixed@35 seed 0: {runs}")
+    run = runs[0][1]
+    k2 = re.findall(r"^    K2 launches: (\d+) \(gathers (\d+):", text, re.M)
+    checks = re.findall(r"^    K2 real batch B=(\d+) s=(\d+) \(kernel vs plain\): "
+                        r"bitwise: (\w+)$", text, re.M)
+    if (not 0 < run["oa"] <= 1 or len(k2) != 1 or int(k2[0][0]) != int(k2[0][1])
+            or int(k2[0][0]) == 0 or not checks or any(ok != "True" for _, _, ok in checks)):
+        raise SystemExit(f"phase 23: OA {run['oa']}, K2 launches against gathers {k2}, "
+                         f"K2 vs plain {checks}")
+    log(f"  paired run single_fixed@35 seed 0, 300 iterations, batch 64: OA "
+        f"{run['oa']:.4f} meanF1 {run['mean_f1']:.4f} (no JAX run at this cut: nothing "
+        f"compared); K2 launches {k2[0][0]} = the gathers, bitwise at (B, s) "
+        f"{sorted({(int(b), int(s)) for b, s, _ in checks})}")
+    log(f"phase 23 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def read_quant_min_ch(centred, int8_conv, f32_runs, f32_scores, card) -> None:
     """Phase 20, a reading: quant_min_ch 64 against the default 128 on
     phase 13's window int8 (1024^2) and dense int8 (2048^2) runs. At 64,
@@ -2832,6 +2901,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     k2["stress_launches"] = run_rehearsals(card)
     k2["study_launches"] = run_studies(card)
+    run_reference_init(card)
 
     def entry(name, source, replaces, k):
         # library_ms: no single PyTorch call computes any of the four

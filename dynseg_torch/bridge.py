@@ -23,11 +23,13 @@ The SGD momentum buffers of the port's optimizer carry across as optax's
 
 from __future__ import annotations
 
+import hashlib
 from typing import Dict
 
 import numpy as np
 import torch
 
+from dynseg_torch import jax_random
 from dynseg_torch.config import ModelConfig
 
 # Flax BatchNorm_0 leaf -> torch bn leaf, for params and for batch_stats.
@@ -155,21 +157,18 @@ def _lecun_normal(rng: np.random.Generator, shape) -> np.ndarray:
     return (z * std).astype(np.float32)
 
 
-def init_variables_np(cfg: ModelConfig, num_input_bands: int,
-                      seed: int = 0) -> dict:
-    """A Flax-shaped variables tree built with numpy alone: lecun-normal
-    kernels, zero biases, BatchNorm scale 1 / bias 0, running mean 0 /
-    var 1. Feeds both packages the same numbers, and lets the port build
-    full-width weights where JAX is not installed."""
+def _variables_tree(cfg: ModelConfig, num_input_bands: int, kernel) -> dict:
+    """The Flax-shaped variables tree of `cfg`: `kernel(name, shape)` draws
+    each HWIO kernel, biases are zero, BatchNorm scale 1 / bias 0, running
+    mean 0 / var 1."""
     from dynseg_torch.ops.quant import block_specs
 
-    rng = np.random.default_rng(seed)
     specs = block_specs(cfg, num_input_bands)
     params: dict = {}
     stats: dict = {}
     for spec in specs:
         k, cin, cout = spec["kernel"], spec["cin"], spec["cout"]
-        conv = {"kernel": _lecun_normal(rng, (k, k, cin, cout))}
+        conv = {"kernel": kernel(spec["name"], (k, k, cin, cout))}
         block = {"Conv_0": conv}
         if cfg.use_batch_norm:
             block["BatchNorm_0"] = {"scale": np.ones(cout, np.float32),
@@ -185,9 +184,75 @@ def init_variables_np(cfg: ModelConfig, num_input_bands: int,
     else:
         head_in = specs[-1]["cout"]
     params["ScoreHead_0"] = {"Conv_0": {
-        "kernel": _lecun_normal(rng, (1, 1, head_in, cfg.num_classes)),
+        "kernel": kernel("ScoreHead_0", (1, 1, head_in, cfg.num_classes)),
         "bias": np.zeros(cfg.num_classes, np.float32)}}
     out = {"params": params}
     if stats:
         out["batch_stats"] = stats
     return out
+
+
+def init_variables_np(cfg: ModelConfig, num_input_bands: int,
+                      seed: int = 0) -> dict:
+    """The tests' fixture draw, not the training path's: a Flax-shaped
+    variables tree with lecun-normal kernels from
+    `np.random.default_rng(seed)` (the same law as Flax's, other numbers),
+    which the CPU tests and probes hand both packages as `variables=`.
+    `init_variables_like_reference` is the draw `Trainer.init_state` makes."""
+    rng = np.random.default_rng(seed)
+    return _variables_tree(cfg, num_input_bands,
+                           lambda name, shape: _lecun_normal(rng, shape))
+
+
+def init_variables_like_reference(cfg: ModelConfig, num_input_bands: int,
+                                  seed: int = 0) -> dict:
+    """The variables tree that `dynseg.train.init_state_template(cfg,
+    jax.random.key(seed))` builds (`model.init` of the Flax net), drawn in
+    numpy by `jax_random`: each Conv kernel is Flax's lecun_normal under
+    the key `Scope.make_rng("params")` gives it. Each scope counts its own
+    calls from 1 and the kernel's is the first in its `Conv_0` scope, so
+    its key folds the path (block, "Conv_0", 1) into `key(seed)`. Biases and BatchNorm parameters take no random
+    numbers (their `make_rng` calls come after the kernel's and change
+    nothing it draws)."""
+    root = jax_random.key(seed)
+    return _variables_tree(
+        cfg, num_input_bands,
+        lambda name, shape: jax_random.lecun_normal(
+            jax_random.fold_in_static(root, (name, "Conv_0", 1)), shape))
+
+
+def variables_sha256(variables) -> str:
+    """SHA-256 of a variables tree with numpy leaves: each leaf's path,
+    dtype, shape and C-order bytes, in sorted path order."""
+    h = hashlib.sha256()
+
+    def walk(tree, prefix):
+        for name in sorted(tree):
+            value = tree[name]
+            if isinstance(value, dict):
+                walk(value, f"{prefix}{name}/")
+            else:
+                a = np.ascontiguousarray(value)
+                h.update(f"{prefix}{name}:{a.dtype.str}:{a.shape}".encode())
+                h.update(a.tobytes())
+
+    walk(variables, "")
+    return h.hexdigest()
+
+
+# `variables_sha256` of `init_variables_like_reference` for the full-width
+# dilated_icpr_rate6 with 3 bands, by (num_classes, seed), which a host
+# checks its own draw against. tests/test_torch_init.py holds the pins to
+# the draw, and the draw to the reference's init.
+REFERENCE_INIT_SHA256 = {
+    (2, 0): "79f19ed6ec87017118dd66184ab02ae823d123be11762cc58cb79e7e1efa1192",
+    (2, 1): "3fe4791f045fbc039800d8d03b27824d6f26a6bea595de0588ad3c429f8ec735",
+    (2, 2): "49a6e5266bc6307f8ddfad5c0096115f321857015e0360cabccdf36692210cce",
+    (2, 3): "adae93b0b56591f7b9b78eec5d65ce14ba09107c4c765fb089b56ceab81cf7b3",
+    (2, 4): "49cec1e12c82451cce4222511e8bcda81fb77e8b0070eb3e8cbc4750c735c390",
+    (6, 0): "328ddec5684e03b7e0c5bf99fe5ea23ce9112d7afbb9ab768f3016eade8ba69e",
+    (6, 1): "ba9820736fef38719dbb470080364da6cad4b693be1fa52d7a2d8084712ae08c",
+    (6, 2): "e086f6a25acf79a7e1a32b4e57ad45fdd4ad679f8e426f4cd4ce473537ece2b4",
+    (6, 3): "579975395fe18bea720fb6252fb735343dcd88a5babb50262414d6eb164b3943",
+    (6, 4): "18d4f42472950f16f5cb8bb76783d32b1a19d15a399a34099617376250d07243",
+}

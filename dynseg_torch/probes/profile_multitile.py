@@ -28,7 +28,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from dynseg_torch.bridge import flax_to_torch, init_variables_np
+from dynseg_torch.bridge import flax_to_torch, init_variables_like_reference
 from dynseg_torch.config import Config, InferConfig, ModelConfig
 from dynseg_torch.data.tiles import compute_stats, pack_tiles
 from dynseg_torch.infer import Inferencer, validate_test
@@ -42,10 +42,11 @@ SIZES = [(2048, 1536), (1792, 1664), (1920, 1440), (1856, 1600)]
 def random_weights(model_cfg: ModelConfig, device: torch.device,
                    variables: Optional[dict] = None) -> Dict[str, torch.Tensor]:
     """The probe's weights on `device`: `variables` (a Flax-shaped tree with
-    numpy leaves, such as JAX's init) or else the port's seeded init
-    (`init_variables_np`, seed 0), as a state_dict."""
+    numpy leaves) or else the script's, the reference's init for seed 0
+    (`init_variables_like_reference`), as a state_dict."""
     if variables is None:
-        variables = init_variables_np(model_cfg, model_cfg.num_input_bands, seed=0)
+        variables = init_variables_like_reference(model_cfg, model_cfg.num_input_bands,
+                                                  seed=0)
     return {k: v.to(device) for k, v in flax_to_torch(variables).items()}
 
 

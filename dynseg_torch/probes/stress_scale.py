@@ -15,9 +15,10 @@ memory and the card's name and power limit; then the set-up's parts
 losses' summary, `fold_peak_bytes` of the window run, K2's launches
 against the gathers the run made, and K2 against its plain version,
 bitwise, on one real batch of every bucket. Training starts from the
-port's seeded init (`Trainer.init_state(0)`). `Trainer.__init__` asks
-cuDNN for its deterministic algorithms for the whole process, so the two
-validate_test runs here take them too, unlike a testing process.
+JAX package's init for seed 0, as the script's (`Trainer.init_state(0)`).
+`Trainer.__init__` asks cuDNN for its deterministic algorithms for the
+whole process, so the two validate_test runs here take them too, unlike
+a testing process.
 --device cpu runs the plain versions (the tests); with the default cuda
 and no card it exits non-zero before any work.
 """
@@ -123,7 +124,7 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
 
 def run(args: argparse.Namespace, variables: Optional[dict] = None) -> dict:
     """The rehearsal on args.device from `variables` (a Flax-shaped tree
-    with numpy leaves; default the port's seeded init). Returns the chunk
+    with numpy leaves; default the reference's init for seed 0). Returns the chunk
     losses, the log lines, both modes' scores, K2's launches and the
     gathers of the run, and the K2 check."""
     dev = resolve_device(args.device)

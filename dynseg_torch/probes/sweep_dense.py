@@ -10,9 +10,9 @@ Each line gives Mpx/s, the label agreement with the float32 block-512
 labels (the script's reference), and the device's peak memory over the
 timed call beside the card's name and power limit. Blocks are grouped as
 the package groups them (8 a forward, or all of a tile that has fewer).
-The weights are random (`profile_multitile.random_weights`: the port's
-seeded init, or a Flax-shaped tree the caller passes); both dtypes use
-the same float32 params. --device cpu runs on the CPU (the tests); with
+The weights are random (`profile_multitile.random_weights`: the
+script's, the reference's init for seed 0, or a Flax-shaped tree the
+caller passes); both dtypes use the same float32 params. --device cpu runs on the CPU (the tests); with
 the default cuda and no card it exits non-zero before any work.
 """
 

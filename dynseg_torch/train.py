@@ -54,7 +54,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from dynseg_torch import parallel
-from dynseg_torch.bridge import flax_to_torch, init_variables_np
+from dynseg_torch.bridge import flax_to_torch, init_variables_like_reference
 from dynseg_torch.config import Config
 from dynseg_torch.data.sampler import BalancedPatchSampler
 from dynseg_torch.data.tiles import (IGNORE_LABEL, TileSet,
@@ -373,9 +373,11 @@ class Trainer:
     # ------------------------------------------------------------------ #
     def init_state(self, seed: int = 0, variables: Optional[dict] = None) -> TrainState:
         """A fresh TrainState from a Flax-shaped variables tree (numpy
-        leaves; default: `init_variables_np` at `seed`)."""
+        leaves; default: `init_variables_like_reference` at `seed`, the
+        weights the reference's `init_state(jax.random.key(seed))` starts
+        from)."""
         if variables is None:
-            variables = init_variables_np(self.cfg.model, self.num_bands, seed)
+            variables = init_variables_like_reference(self.cfg.model, self.num_bands, seed)
         model = build_model(self.cfg.model, self.num_bands)
         model.load_state_dict(flax_to_torch(variables))
         model.to(self.device).train()

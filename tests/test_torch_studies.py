@@ -14,8 +14,8 @@ mode_gap, bf16_eval and parity_bracket) against the scripts they port
   raises, a preempted run, an interrupt.
 * The refusals exit with the script's code and message.
 * A tiny real sched_ablation through both (two configs, the width-0.125
-  net, 4 iterations of batch 8, a 64^2 texture set), the port from JAX's
-  init: every run's OA and mean F1 within 1e-3 of the script's (measured
+  net, 4 iterations of batch 8, a 64^2 texture set), each drawing its own
+  init, the port's equal to JAX's: every run's OA and mean F1 within 1e-3 of the script's (measured
   1.2e-4 in OA and 1.4e-4 in mean F1; the maps are not one class, OA ~0.3).
 * Without a card the default --device exits 1 before any work.
 """
@@ -38,7 +38,7 @@ import torch
 import dynseg.cli as jax_cli
 import dynseg.train as jax_train
 import dynseg_torch.train as port_train
-from dynseg_torch import cli
+from dynseg_torch import bridge, cli
 from dynseg_torch.probes import (bf16_eval, diagnose_collapse, ema_recalib_probe,
                                  mode_gap, parity_bracket, sched_ablation, study)
 
@@ -400,8 +400,9 @@ def test_without_a_card_the_default_exits_1(name, monkeypatch, capsys):
 def test_tiny_sched_ablation_matches_the_script(tmp_path, monkeypatch, capsys):
     """Two configs (multi_fixed and uniform over 25 and 35 px: the scales
     they draw do not depend on the scores) through the script on
-    XLA-CPU and the port on the CPU, the port's runs from JAX's init of
-    each run: every run's OA and mean F1 within 1e-3."""
+    XLA-CPU and the port on the CPU, each side drawing its own init for
+    --seed: the port's draw equals JAX's init of each run, and every
+    run's OA and mean F1 is within 1e-3."""
     monkeypatch.setattr(jax_cli, "enable_compilation_cache", lambda *a, **k: None)
     argv = ["--values", "25,35", "--skip_single_fixed", "--distributions",
             "multi_fixed,uniform", "--seeds", "1", "--niter", "4", "--batch_size", "8",
@@ -423,14 +424,27 @@ def test_tiny_sched_ablation_matches_the_script(tmp_path, monkeypatch, capsys):
     assert len(inits) == 2
 
     port_init = port_train.Trainer.init_state
-    queue = list(inits)
-    monkeypatch.setattr(port_train.Trainer, "init_state",
-                        lambda self, seed=0, variables=None: port_init(self, seed, queue.pop(0)))
+    drawn = []
+
+    def own_draw(self, seed=0, variables=None):
+        assert variables is None
+        state = port_init(self, seed)
+        drawn.append(bridge.torch_to_flax(
+            {k: v.clone() for k, v in state.model.state_dict().items()}))
+        return state
+
+    monkeypatch.setattr(port_train.Trainer, "init_state", own_draw)
     capsys.readouterr()
     got = sched_ablation.run(sched_ablation.parse_args(
         argv + ["--device", "cpu", "--out", str(tmp_path / "port.json")]), torch.device("cpu"))
     text = capsys.readouterr().out
-    assert not queue
+    assert len(drawn) == len(inits)
+    for want_tree, got_tree in zip(inits, drawn):
+        want_leaves = jax.tree_util.tree_flatten_with_path(want_tree)[0]
+        got_leaves = jax.tree_util.tree_flatten_with_path(got_tree)[0]
+        assert [p for p, _ in got_leaves] == [p for p, _ in want_leaves]
+        for (path, w), (_, g) in zip(want_leaves, got_leaves):
+            np.testing.assert_array_equal(g, w, err_msg=jax.tree_util.keystr(path))
     assert sorted(r["config"] for r in got["results"]) == ["multi_fixed", "uniform"]
     by_config = {r["config"]: r["runs"][0] for r in want["results"]}
     for r in got["results"]:
