@@ -56,6 +56,7 @@ from dynseg_torch.models.dilated import build_model, receptive_radius
 from dynseg_torch.ops import quant as quant_ops
 from dynseg_torch.ops.dihedral import dihedral, dihedral_inv
 from dynseg_torch.train import resolve_device
+from dynseg_torch.utils.profiling import span
 
 
 def window_origins(lo: int, hi: int, size: int, stride: int, lim: int) -> List[int]:
@@ -117,18 +118,21 @@ class Inferencer:
         cfg.infer.hbm_budget_gb (GiB) is uploaded whole; a larger one
         stays on the host as numpy, and `_tile` uploads one tile a
         predict, so the device holds one padded tile at a time."""
-        padded = fill_padded_context(
-            mirror_pad(tiles, self.pad, pad_masks=False), self.pad)
-        self.valid_hw = np.asarray(tiles.valid_hw)
-        self.padded_hw = tuple(int(v) for v in padded.images.shape[1:3])
-        packed = padded.images.astype(storage_dtype(padded.images), copy=False)
-        del padded
-        self._stream = packed.nbytes > int(self.cfg.infer.hbm_budget_gb * 1024**3)
-        self.images = packed if self._stream else torch.from_numpy(packed).to(self.device)
-        self.mean = torch.as_tensor(tiles.mean, dtype=torch.float32,
-                                    device=self.device)
-        self.std = torch.as_tensor(tiles.std, dtype=torch.float32,
-                                   device=self.device)
+        with span("infer.setup.pad"):
+            padded = fill_padded_context(
+                mirror_pad(tiles, self.pad, pad_masks=False), self.pad)
+            self.valid_hw = np.asarray(tiles.valid_hw)
+            self.padded_hw = tuple(int(v) for v in padded.images.shape[1:3])
+            packed = padded.images.astype(storage_dtype(padded.images), copy=False)
+            del padded
+        with span("infer.setup.upload"):
+            self._stream = packed.nbytes > int(self.cfg.infer.hbm_budget_gb * 1024**3)
+            self.images = (packed if self._stream
+                           else torch.from_numpy(packed).to(self.device))
+            self.mean = torch.as_tensor(tiles.mean, dtype=torch.float32,
+                                        device=self.device)
+            self.std = torch.as_tensor(tiles.std, dtype=torch.float32,
+                                       device=self.device)
 
     @torch.inference_mode()
     def enable_quant(self, variables):
@@ -140,6 +144,12 @@ class Inferencer:
         icfg = self.cfg.infer
         if icfg.quant == "none":
             return variables
+        with span("infer.calibrate"):
+            return self._calibrate(variables)
+
+    def _calibrate(self, variables):
+        """`enable_quant`'s int8 calibration and quantization."""
+        icfg = self.cfg.infer
         rng = np.random.default_rng(0)
         num_tiles = int(self.valid_hw.shape[0])
         crops = []
@@ -171,12 +181,14 @@ class Inferencer:
                size: int) -> torch.Tensor:
         """Softmax probabilities (N, size, size, nc) of the normalized
         size x size crops of `tile` at `origins` (N, 2)."""
-        o = torch.as_tensor(origins, dtype=torch.long, device=self.device)
-        ar = torch.arange(size, device=self.device)
-        rows = (o[:, 0, None] + ar)[:, :, None]
-        cols = (o[:, 1, None] + ar)[:, None, :]
-        x = (tile[rows, cols].float() - self.mean) / self.std
-        return torch.softmax(self._apply(variables, x).float(), dim=-1)
+        with span("infer.index"):
+            o = torch.as_tensor(origins, dtype=torch.long, device=self.device)
+            ar = torch.arange(size, device=self.device)
+            rows = (o[:, 0, None] + ar)[:, :, None]
+            cols = (o[:, 1, None] + ar)[:, None, :]
+        with span("infer.forward"):
+            x = (tile[rows, cols].float() - self.mean) / self.std
+            return torch.softmax(self._apply(variables, x).float(), dim=-1)
 
     def _window_batch(self) -> int:
         """Windows per forward batch: window_batch, rounded to a multiple of
@@ -217,28 +229,30 @@ class Inferencer:
         """Add the windows rows_u x cols_u (a uniform-stride grid) to prob
         and cnt with one `F.fold`, then `tails` one by one."""
         B = self._window_batch()
-        bulk = [(r, c) for r in rows_u for c in cols_u]
-        origins = np.array(bulk + list(tails), np.int64).reshape(-1, 2)
+        with span("infer.index"):
+            bulk = [(r, c) for r in rows_u for c in cols_u]
+            origins = np.array(bulk + list(tails), np.int64).reshape(-1, 2)
         probs = torch.cat([
             self._split_probs(variables, tile, origins[i:i + B], s, B)
             for i in range(0, len(origins), B)])
-        self._collected(probs)
-        nbu = len(bulk)
-        if nbu:
-            R = (len(rows_u) - 1) * stride + s
-            C = (len(cols_u) - 1) * stride + s
-            cols_in = probs[:nbu].permute(3, 1, 2, 0).reshape(
-                1, self.nc * s * s, nbu)
-            self._collected(cols_in)
-            placed = F.fold(cols_in, (R, C), s, stride=stride)[0]
-            ones = torch.ones((1, s * s, nbu), device=self.device)
-            votes = F.fold(ones, (R, C), s, stride=stride)[0, 0]
-            r0, c0 = rows_u[0], cols_u[0]
-            prob[r0:r0 + R, c0:c0 + C] += placed.permute(1, 2, 0)
-            cnt[r0:r0 + R, c0:c0 + C] += votes
-        for (r, c), p in zip(tails, probs[nbu:]):
-            prob[r:r + s, c:c + s] += p
-            cnt[r:r + s, c:c + s] += 1.0
+        with span("infer.fold"):
+            self._collected(probs)
+            nbu = len(bulk)
+            if nbu:
+                R = (len(rows_u) - 1) * stride + s
+                C = (len(cols_u) - 1) * stride + s
+                cols_in = probs[:nbu].permute(3, 1, 2, 0).reshape(
+                    1, self.nc * s * s, nbu)
+                self._collected(cols_in)
+                placed = F.fold(cols_in, (R, C), s, stride=stride)[0]
+                ones = torch.ones((1, s * s, nbu), device=self.device)
+                votes = F.fold(ones, (R, C), s, stride=stride)[0, 0]
+                r0, c0 = rows_u[0], cols_u[0]
+                prob[r0:r0 + R, c0:c0 + C] += placed.permute(1, 2, 0)
+                cnt[r0:r0 + R, c0:c0 + C] += votes
+            for (r, c), p in zip(tails, probs[nbu:]):
+                prob[r:r + s, c:c + s] += p
+                cnt[r:r + s, c:c + s] += 1.0
 
     # ------------------------------------------------------------------ #
     @torch.inference_mode()
@@ -327,10 +341,11 @@ class Inferencer:
         for lo in range(0, len(starts), D):
             group = starts[lo:lo + D]
             probs = self._split_probs(variables, tile, group - halo, ext, D)
-            centers = probs[:, halo:halo + block_eff, halo:halo + block_eff]
-            # Overlapping blocks recompute the same values: overwrite.
-            for (r, c), p in zip(group, centers):
-                prob[r:r + block_eff, c:c + block_eff] = p
+            with span("infer.place"):
+                centers = probs[:, halo:halo + block_eff, halo:halo + block_eff]
+                # Overlapping blocks recompute the same values: overwrite.
+                for (r, c), p in zip(group, centers):
+                    prob[r:r + block_eff, c:c + block_eff] = p
         p = self.pad
         valid = prob[p:p + h, p:p + w]
         return torch.argmax(valid, dim=-1).to(torch.uint8), valid, None
@@ -355,14 +370,15 @@ class Inferencer:
         icfg = self.cfg.infer
         if icfg.mode == "dense":
             self._check_halo(icfg.dense_halo)
-        if icfg.tta if tta is None else tta:
-            return self._tta_device(variables, tile_idx, scales)[0]
-        if icfg.mode == "dense":
-            pred, _, _ = self._dense_device(
-                variables, tile_idx, icfg.dense_block, icfg.dense_halo)
-        else:
-            pred, _, _ = self._window_device(variables, tile_idx, scales)
-        return pred
+        with span("infer.tile"):
+            if icfg.tta if tta is None else tta:
+                return self._tta_device(variables, tile_idx, scales)[0]
+            if icfg.mode == "dense":
+                pred, _, _ = self._dense_device(
+                    variables, tile_idx, icfg.dense_block, icfg.dense_halo)
+            else:
+                pred, _, _ = self._window_device(variables, tile_idx, scales)
+            return pred
 
     @torch.inference_mode()
     def _tta_device(self, variables, tile_idx: int,
@@ -401,13 +417,20 @@ class Inferencer:
 
     @staticmethod
     def _finish(pred, prob, cnt, return_probs: bool):
-        pred_np = pred.cpu().numpy().astype(np.int32)
-        if not return_probs:
-            return pred_np, None
-        prob_np = prob.cpu().numpy()
-        if cnt is not None:
-            prob_np = prob_np / np.maximum(cnt.cpu().numpy()[..., None], 1e-9)
-        return pred_np, prob_np
+        """The tile's answer on the host. On a card the host first waits
+        for the tile's work (`infer.wait`), which the first copy would wait
+        for all the same, so that `infer.to_host` is the copies alone."""
+        if pred.is_cuda:
+            with span("infer.wait"):
+                torch.cuda.current_stream(pred.device).synchronize()
+        with span("infer.to_host"):
+            pred_np = pred.cpu().numpy().astype(np.int32)
+            if not return_probs:
+                return pred_np, None
+            prob_np = prob.cpu().numpy()
+            if cnt is not None:
+                prob_np = prob_np / np.maximum(cnt.cpu().numpy()[..., None], 1e-9)
+            return pred_np, prob_np
 
     def predict_tile(self, variables, tile_idx: int,
                      scales: Optional[Sequence[int]] = None,
@@ -416,11 +439,12 @@ class Inferencer:
         """Window-vote prediction of one tile over all scales: (pred (h,w)
         int32, vote-averaged probs (h,w,nc) float32 or None). With tta
         (default cfg.infer.tta) the probs are the 8-way dihedral fusion."""
-        if self.cfg.infer.tta if tta is None else tta:
-            pred, prob = self._tta_device(variables, tile_idx, scales, mode="window")
-            return self._finish(pred, prob, None, return_probs=return_probs)
-        return self._finish(*self._window_device(variables, tile_idx, scales),
-                            return_probs=return_probs)
+        with span("infer.tile"):
+            if self.cfg.infer.tta if tta is None else tta:
+                pred, prob = self._tta_device(variables, tile_idx, scales, mode="window")
+                return self._finish(pred, prob, None, return_probs=return_probs)
+            return self._finish(*self._window_device(variables, tile_idx, scales),
+                                return_probs=return_probs)
 
     def predict_tile_dense(self, variables, tile_idx: int, block: int = 256,
                            halo: int = 40, return_probs: bool = True,
@@ -432,12 +456,13 @@ class Inferencer:
         cfg.infer.tta) the probs are the 8-way dihedral fusion at the same
         block and halo."""
         self._check_halo(halo)
-        if self.cfg.infer.tta if tta is None else tta:
-            pred, prob = self._tta_device(variables, tile_idx, mode="dense",
-                                          block=block, halo=halo)
-            return self._finish(pred, prob, None, return_probs=return_probs)
-        return self._finish(*self._dense_device(variables, tile_idx, block, halo),
-                            return_probs=return_probs)
+        with span("infer.tile"):
+            if self.cfg.infer.tta if tta is None else tta:
+                pred, prob = self._tta_device(variables, tile_idx, mode="dense",
+                                              block=block, halo=halo)
+                return self._finish(pred, prob, None, return_probs=return_probs)
+            return self._finish(*self._dense_device(variables, tile_idx, block, halo),
+                                return_probs=return_probs)
 
 
 def _quiet(*_args, **_kw) -> None:

@@ -24,7 +24,8 @@ covers those copies. Inputs go up from pinned memory without waiting.
 Endpoints:
     GET  /healthz             liveness + manifest summary
     GET  /manifest            full export manifest
-    GET  /metrics             counters and latency quantiles
+    GET  /metrics             counters, latency quantiles, and the calls
+                              and seconds of the serve.* spans
     POST /predict?mode=dense|window&output=labels|probs|png[&scales=..][&tta=1]
                               body: PNG/JPEG image bytes or .npy array
                               (H, W, bands)
@@ -50,6 +51,7 @@ from urllib.parse import parse_qs, urlparse
 import numpy as np
 
 from dynseg_torch.export import ExportedPredictor
+from dynseg_torch.utils.profiling import span, totals
 
 # Upper bound on client-requested window scales: padding and probability
 # buffers grow quadratically in max(scales), so this is a DoS guard, not
@@ -66,9 +68,19 @@ class _DeadlineExpired(Exception):
 def _to_host(out) -> np.ndarray:
     """A predictor's result as numpy: the copy of a device tensor to the
     host, which waits for the launches that made it."""
-    if hasattr(out, "cpu"):
-        return out.cpu().numpy()
-    return np.asarray(out)
+    with span("serve.to_host"):
+        if hasattr(out, "cpu"):
+            return out.cpu().numpy()
+        return np.asarray(out)
+
+
+def _span_totals() -> dict:
+    """/metrics' `spans`: calls and seconds of this process's serve.*
+    spans (queue: waits for the engine lock and the cross-batch linger;
+    device: artifact calls under the lock; to_host: result copies)."""
+    return {k: {"calls": v["calls"], "seconds": round(v["seconds"], 6)}
+            for k, v in sorted(totals().items())
+            if k.startswith("serve.")}
 
 
 def _drain_capped(rfile, length: int, limit: int = 8 << 20) -> int:
@@ -138,6 +150,12 @@ class _CrossBatcher:
         with self.cv:
             while not self.pending:
                 self.cv.wait()
+        with span("serve.queue"):
+            return self._linger()
+
+    def _linger(self):
+        """The group to launch: lingers up to window_s after the first
+        pending block, or until max_batch blocks of one key wait."""
         deadline = time.monotonic() + self.window_s
         while True:
             with self.cv:
@@ -170,10 +188,9 @@ class _CrossBatcher:
                 xs = np.concatenate([xs, np.repeat(xs[-1:], tgt - n, 0)])
             self.inflight.acquire()
             try:
-                with self.engine._lock:
-                    dev = (self.engine.p.dense_labels_device(xs)
-                           if kind == "labels"
-                           else self.engine.p.probs_device(xs))
+                entry = (self.engine.p.dense_labels_device if kind == "labels"
+                         else self.engine.p.probs_device)
+                dev = self.engine._launch(lambda: entry(xs))
             except BaseException as e:  # noqa: BLE001 — routed to futures
                 self.inflight.release()
                 for _, fut in grp:
@@ -233,6 +250,16 @@ class ServingEngine:
         self._batcher = (_CrossBatcher(self, cross_batch_ms)
                          if cross_batch_ms > 0 else None)
 
+    def _launch(self, thunk):
+        """thunk() under the engine lock: one caller launches at a time."""
+        with span("serve.queue"):
+            self._lock.acquire()
+        try:
+            with span("serve.device"):
+                return thunk()
+        finally:
+            self._lock.release()
+
     def _pipelined(self, launches):
         """launches yields (meta, thunk) where thunk() returns a DEVICE
         result; yields (meta, np.ndarray) with up to pipeline_depth
@@ -241,8 +268,7 @@ class ServingEngine:
 
         q = collections.deque()
         for meta, thunk in launches:
-            with self._lock:
-                q.append((meta, thunk()))
+            q.append((meta, self._launch(thunk)))
             if len(q) > self.pipeline_depth:
                 m, dev = q.popleft()
                 yield m, _to_host(dev)
@@ -607,7 +633,7 @@ def make_server(export_dir: str, host: str = "127.0.0.1", port: int = 8400,
             elif path == "/manifest":
                 self._json(200, manifest)
             elif path == "/metrics":
-                self._json(200, stats.snapshot())
+                self._json(200, dict(stats.snapshot(), spans=_span_totals()))
             else:
                 self._json(404, {"error": f"no route {path}"})
 

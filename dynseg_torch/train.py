@@ -66,6 +66,7 @@ from dynseg_torch.metrics import (accuracy_counts, balanced_from_counts,
 from dynseg_torch.models.dilated import build_model
 from dynseg_torch.ops.gather import gather_batch
 from dynseg_torch.sched.scheduler import ScaleScheduler
+from dynseg_torch.utils.profiling import span
 
 Metrics = Dict[str, torch.Tensor]
 
@@ -283,46 +284,46 @@ class Trainer:
         # Mirror-pad once so a patch of any scheduled size centred on a
         # valid pixel stays inside; tiles smaller than the pack see their
         # own mirrored context. Masks stay IGNORE in the pad.
-        t0 = time.perf_counter()
-        padded = fill_padded_context(mirror_pad(train_tiles, self.pad), self.pad)
-        t1 = time.perf_counter()
-        sampler_kw = dict(num_classes=cfg.model.num_classes, pad=self.pad,
-                          balanced=cfg.data.balanced_sampling,
-                          max_positions_per_class=cfg.data.max_positions_per_class)
-        if self.shard_tiles:
-            padded, self.tile_order = self._interleave(padded, n)
-            tpd = padded.images.shape[0] // n
-            self.tiles_per_device = tpd
-            # Every rank builds the n per-device samplers (seed + 31 d), so
-            # that every rank draws the global batch in the reference's
-            # order; it uploads only its own block of tiles.
-            self.samplers = []
-            for d in range(n):
-                shard = dataclasses.replace(
-                    padded, images=padded.images[d * tpd:(d + 1) * tpd],
-                    masks=padded.masks[d * tpd:(d + 1) * tpd])
-                try:
-                    self.samplers.append(BalancedPatchSampler(
-                        shard, seed=cfg.train.seed + 31 * d, **sampler_kw))
-                except ValueError as e:
-                    raise ValueError(
-                        f"--shard_tiles: device {d}'s tile shard has no "
-                        f"labeled pixels; use more tiles or fewer devices") from e
-            r = self.world.rank
-            padded = dataclasses.replace(
-                padded, images=padded.images[r * tpd:(r + 1) * tpd],
-                masks=padded.masks[r * tpd:(r + 1) * tpd])
-            self.sampler = self.samplers[0]  # the augment ids' source
-        else:
-            self.sampler = BalancedPatchSampler(padded, seed=cfg.train.seed,
-                                                **sampler_kw)
-            self.samplers = [self.sampler]
-        t2 = time.perf_counter()
-        self.images, self.masks, self.mean, self.std = self._upload(padded)
+        with span("train.setup.pad") as pad:
+            padded = fill_padded_context(mirror_pad(train_tiles, self.pad), self.pad)
+        with span("train.setup.tables") as tables:
+            sampler_kw = dict(num_classes=cfg.model.num_classes, pad=self.pad,
+                              balanced=cfg.data.balanced_sampling,
+                              max_positions_per_class=cfg.data.max_positions_per_class)
+            if self.shard_tiles:
+                padded, self.tile_order = self._interleave(padded, n)
+                tpd = padded.images.shape[0] // n
+                self.tiles_per_device = tpd
+                # Every rank builds the n per-device samplers (seed + 31 d), so
+                # that every rank draws the global batch in the reference's
+                # order; it uploads only its own block of tiles.
+                self.samplers = []
+                for d in range(n):
+                    shard = dataclasses.replace(
+                        padded, images=padded.images[d * tpd:(d + 1) * tpd],
+                        masks=padded.masks[d * tpd:(d + 1) * tpd])
+                    try:
+                        self.samplers.append(BalancedPatchSampler(
+                            shard, seed=cfg.train.seed + 31 * d, **sampler_kw))
+                    except ValueError as e:
+                        raise ValueError(
+                            f"--shard_tiles: device {d}'s tile shard has no "
+                            f"labeled pixels; use more tiles or fewer devices") from e
+                r = self.world.rank
+                padded = dataclasses.replace(
+                    padded, images=padded.images[r * tpd:(r + 1) * tpd],
+                    masks=padded.masks[r * tpd:(r + 1) * tpd])
+                self.sampler = self.samplers[0]  # the augment ids' source
+            else:
+                self.sampler = BalancedPatchSampler(padded, seed=cfg.train.seed,
+                                                    **sampler_kw)
+                self.samplers = [self.sampler]
+        with span("train.setup.upload") as upload:
+            self.images, self.masks, self.mean, self.std = self._upload(padded)
         # Host seconds of the set-up: mirror padding, the position tables,
         # and the upload (a blocking copy from pageable memory).
-        self.setup_s = {"pad": t1 - t0, "tables": t2 - t1,
-                        "upload": time.perf_counter() - t2}
+        self.setup_s = {"pad": pad.seconds, "tables": tables.seconds,
+                        "upload": upload.seconds}
         self.dropout_gen = torch.Generator(device=self.device)
         self.dropout_gen.manual_seed(cfg.train.seed + 1)
         # (scale, patches, start mark, end mark) of the train_step calls not
@@ -490,12 +491,14 @@ class Trainer:
     def train_step(self, state: TrainState, size: int) -> Tuple[TrainState, Metrics]:
         """cfg.train.steps_per_call optimizer steps at patch size `size`."""
         k = self.cfg.train.steps_per_call
-        pos, aug = self.make_batch_inputs(size, k=k)
-        start = _mark(self.device)
-        metrics = self._chunk_impl(state, pos, aug, size)
-        self.step_marks.append((size, k * self.batch_size_for(size), start,
-                                _mark(self.device)))
-        self._fold_marks(block=False)
+        with span("train.sample"):
+            pos, aug = self.make_batch_inputs(size, k=k)
+        with span("train.step"):
+            start = _mark(self.device)
+            metrics = self._chunk_impl(state, pos, aug, size)
+            self.step_marks.append((size, k * self.batch_size_for(size), start,
+                                    _mark(self.device)))
+            self._fold_marks(block=False)
         return state, metrics
 
     def _fold_marks(self, block: bool) -> None:
@@ -657,62 +660,66 @@ def train_loop(
     def consume_one():
         ps, host, event = pending.popleft()
         if event is not None:
-            event.synchronize()
-        scheduler.update(ps, float(host["loss"]), float(host["acc"]),
-                         bacc=float(host["bacc"]) if "bacc" in host else None)
+            with span("train.metric_wait"):
+                event.synchronize()
+        with span("train.update"):
+            scheduler.update(ps, float(host["loss"]), float(host["acc"]),
+                             bacc=float(host["bacc"]) if "bacc" in host else None)
 
-    t0 = time.perf_counter()
-    patches = 0
-    it = start_iter
-    try:
-        while it < niter:
-            stop, _ = parallel.agree(stop_sig["num"] is not None)
-            if stop:
-                while pending:
+    with span("train.loop"):
+        t0 = time.perf_counter()
+        patches = 0
+        it = start_iter
+        try:
+            while it < niter:
+                stop, _ = parallel.agree(stop_sig["num"] is not None)
+                if stop:
+                    while pending:
+                        consume_one()
+                    checkpointer(it, state, scheduler)
+                    log(f"signal {stop_sig['num'] or 'to another rank'} received: "
+                        f"checkpointed at iteration {it}, stopping")
+                    return state
+                with span("train.select"):
+                    scale = scheduler.select()
+                    chosen = parallel.broadcast_choice(scale)
+                if chosen != scale:
+                    raise RuntimeError(
+                        f"rank {parallel.world().rank}: the scheduler drew scale "
+                        f"{scale} where rank 0's drew {chosen}; the ranks' "
+                        f"schedulers diverged")
+                state, metrics = trainer.train_step(state, scale)
+                prev_it, it = it, it + k
+                patches += k * trainer.batch_size_for(scale)
+                pending.append((scale, *fetch_async(metrics)))
+                while len(pending) > depth:
                     consume_one()
-                checkpointer(it, state, scheduler)
-                log(f"signal {stop_sig['num'] or 'to another rank'} received: "
-                    f"checkpointed at iteration {it}, stopping")
-                return state
-            scale = scheduler.select()
-            chosen = parallel.broadcast_choice(scale)
-            if chosen != scale:
-                raise RuntimeError(
-                    f"rank {parallel.world().rank}: the scheduler drew scale "
-                    f"{scale} where rank 0's drew {chosen}; the ranks' "
-                    f"schedulers diverged")
-            state, metrics = trainer.train_step(state, scale)
-            prev_it, it = it, it + k
-            patches += k * trainer.batch_size_for(scale)
-            pending.append((scale, *fetch_async(metrics)))
-            while len(pending) > depth:
+
+                def crossed(every: int) -> bool:
+                    if every <= 0:  # 0 disables a periodic action
+                        return False
+                    return prev_it // every != it // every
+
+                if crossed(log_every):
+                    m = {key: float(v) for key, v in metrics.items()}
+                    dt = time.perf_counter() - t0
+                    log(f"iter {it}/{niter} scale={scale} loss={m['loss']:.4f} "
+                        f"acc={m['acc']:.4f} patches/s={patches / max(dt, 1e-9):.1f} "
+                        f"| {scheduler.summary()}")
+                    t0 = time.perf_counter()
+                    patches = 0
+                if on_eval is not None and crossed(cfg.train.eval_every):
+                    # Drain first: the scores must reflect every completed batch.
+                    while pending:
+                        consume_one()
+                    on_eval(it, state)
+                if checkpointer is not None and crossed(cfg.train.checkpoint_every):
+                    while pending:
+                        consume_one()
+                    checkpointer(it, state, scheduler)
+            while pending:
                 consume_one()
-
-            def crossed(every: int) -> bool:
-                if every <= 0:  # 0 disables a periodic action
-                    return False
-                return prev_it // every != it // every
-
-            if crossed(log_every):
-                m = {key: float(v) for key, v in metrics.items()}
-                dt = time.perf_counter() - t0
-                log(f"iter {it}/{niter} scale={scale} loss={m['loss']:.4f} "
-                    f"acc={m['acc']:.4f} patches/s={patches / max(dt, 1e-9):.1f} "
-                    f"| {scheduler.summary()}")
-                t0 = time.perf_counter()
-                patches = 0
-            if on_eval is not None and crossed(cfg.train.eval_every):
-                # Drain first: the scores must reflect every completed batch.
-                while pending:
-                    consume_one()
-                on_eval(it, state)
-            if checkpointer is not None and crossed(cfg.train.checkpoint_every):
-                while pending:
-                    consume_one()
-                checkpointer(it, state, scheduler)
-        while pending:
-            consume_one()
-        return state
-    finally:
-        for s, h in prev_handlers.items():
-            signal.signal(s, h)
+            return state
+        finally:
+            for s, h in prev_handlers.items():
+                signal.signal(s, h)

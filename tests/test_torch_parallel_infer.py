@@ -384,29 +384,6 @@ def test_other_operations_run_on_one_device(trained, monkeypatch, capsys):
 # --------------------------------------------------------------------- #
 # profiling
 # --------------------------------------------------------------------- #
-def test_meter_matches_reference(monkeypatch):
-    """Under the same clock both meters give the same rates; the first
-    add() only starts the clock."""
-    rates = {}
-    for mod in (ref_profiling, profiling):
-        ticks = iter([10.0, 11.0, 12.0, 20.0, 20.25, 21.0])
-        monkeypatch.setattr(mod.time, "perf_counter", lambda: next(ticks))
-        m = mod.Meter()
-        got = [m.rate]
-        m.add(100)  # starts the clock at 10.0
-        m.add(30)
-        got.append(m.rate)  # 30 units over 1 s
-        m.add(50)
-        got.append(m.rate)  # 80 over 2 s
-        m.reset()
-        got.append(m.rate)
-        m.add(5)
-        got.append(m.rate)  # 0 over 0.75 s
-        rates[mod.__name__] = got
-    assert rates[profiling.__name__] == rates[ref_profiling.__name__] == [
-        0.0, 30.0, 40.0, 0.0, 0.0]
-
-
 @pytest.mark.parametrize("where", [None, ""])
 def test_trace_is_a_no_op_without_a_directory(where, tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)

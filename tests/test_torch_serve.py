@@ -320,6 +320,10 @@ def test_http_answers_and_metrics_match_reference(artifacts):
         man_p, man_r = (json.loads(a[16][2]) for a in (port, ref))
         assert man_p["net_type"] == man_r["net_type"] and man_p["inference"] == man_r["inference"]
         met_p, met_r = (json.loads(a[17][2]) for a in (port, ref))
+        # The port's /metrics adds its serve.* spans to the reference's keys.
+        spans = met_p.pop("spans")
+        assert {"serve.queue", "serve.device", "serve.to_host"} <= set(spans)
+        assert all(v["calls"] > 0 and v["seconds"] >= 0 for v in spans.values())
         assert met_p.keys() == met_r.keys()
         for m in (met_p, met_r):
             m.pop("uptime_s")
