@@ -16,11 +16,17 @@ runs without them.
      each variant (wgmma, the serving path's; dp4a, PR 1's kernel) int8
      output bitwise equal, float32 output within 1e-5 * max|y|, with its
      CUDA-event time, TOPS and share of the bound;
+  2b. K6 (max_pool_s1 forward) kernel vs plain, bitwise, at the six
+     pools of a dense batch of dilated_grsl_rate8 (8 x 336^2: C 64 and 64
+     f32, 128 f32 -> int8 with the quantize fused, 128 and 192 int8, 192
+     f32), each with its device time, share of the byte bound, the plain
+     composition's time and ATen's float32 max_pool2d at the same shape;
   3. the serving path: a small tile through `validate_test` on the card
      and on the CPU (plain versions): the same answer; then the three
      timed runs (window float and window int8 on a 1024^2 tile, 5 scales
      25..65; dense int8 on a 2048^2 tile), with K5's launch count held to
-     3 per int8 forward, all of them the wgmma variant; then window float
+     3 per int8 forward, all of them the wgmma variant, and K6's to 2 i8
+     and 1 f32_i8 per int8 forward; then window float
      again with DYNSEG_FOLD_MEM_GB at 0.02, under every scale's collected
      buffer, so that each scale folds in bands: the largest collected
      tensor (`Inferencer.fold_peak_bytes`) within the cap, the vote counts
@@ -303,6 +309,8 @@ GATHER_SOURCE = "dynseg_torch/csrc/patch_gather.cu"
 GATHER_REPLACES = "dynseg/ops/pallas_gather.py:92"
 POOL_SOURCE = "dynseg_torch/csrc/pool_bwd.cu"
 POOL_REPLACES = "dynseg/ops/pool.py:76"
+K6_SOURCE = "dynseg_torch/csrc/max_pool_fwd.cu"
+K6_REPLACES = "none in Pallas: lax.reduce_window on int8, dynseg/ops/quant.py:192-220"
 P1_SOURCE = "dynseg_torch/csrc/int8_conv3x3.cu"
 P1_REPLACES = "scripts/int8_kernel_probe.py:112"
 DEVICE = "cuda"
@@ -340,6 +348,9 @@ PR4_K2_DEVICE_MS = {25: 0.0073, 35: 0.0091, 45: 0.0142, 55: 0.0196, 65: 0.0249}
 # The six pools of a full-width dilated_icpr_rate6 step: channels of its
 # blocks (a 65 px step makes one backward at each).
 POOL_CHANNELS = (64, 64, 128, 128, 256, 256)
+# K6's six pools in a dense int8 forward of dilated_grsl_rate8 (quant_min_ch
+# 128, no int8 exit): (channels, mode) of blocks 0-5.
+K6_POOLS = ((64, "f32"), (64, "f32"), (128, "f32_i8"), (128, "i8"), (192, "i8"), (192, "f32"))
 # The command line: iterations of the first training run and of the resume.
 CLI_NITER, CLI_RESUME_NITER, CLI_EVERY = 40, 60, 20
 # Phase 14's window-mode tile, and phase 16's short pallas run.
@@ -639,6 +650,7 @@ def run_slice(weights, int8_conv, card: str) -> dict:
     """Phase 3b: the three timed validate_test runs."""
     from dynseg_torch.data.datasets import load_synthetic
     from dynseg_torch.infer import validate_test
+    from dynseg_torch.ops import pool
 
     t0 = time.perf_counter()
     tiles1k = load_synthetic(seed=0, num_tiles=2, size=WINDOW_TILE)[1]
@@ -649,6 +661,7 @@ def run_slice(weights, int8_conv, card: str) -> dict:
             ("dense int8", config("dense", "int8"), tiles2k))
     int8_forwards = 0
     int8_conv.reset_launches()
+    pool.reset_launches()
     all_scores = {}
     for name, cfg, tiles in runs:
         t0 = time.perf_counter()
@@ -669,6 +682,11 @@ def run_slice(weights, int8_conv, card: str) -> dict:
             f"infer_wall_s={scores['infer_wall_s']} "
             f"({px / scores['infer_wall_s'] / 1e6:.3f} Mpx/s) "
             f"call wall {wall:.3f} s, {fw} forwards [{card}]")
+    fwd = dict(pool.fwd_launches)
+    log(f"K6 launches: {fwd} (2 i8 and 1 f32_i8 x {int8_forwards} int8 forwards; "
+        f"f32 besides in the calibrations)")
+    if fwd["i8"] != 2 * int8_forwards or fwd["f32_i8"] != int8_forwards:
+        raise SystemExit("K6 launch count does not match the int8 forwards")
     launches = int8_conv.launches
     log(f"K5 launches on the main path: {launches} "
         f"(3 quantized blocks x {int8_forwards} int8 forwards), by variant "
@@ -677,7 +695,8 @@ def run_slice(weights, int8_conv, card: str) -> dict:
         raise SystemExit("K5 launch count does not match the int8 forwards")
     if int8_conv.variant_launches["wgmma"] != launches:
         raise SystemExit("K5: a serving block did not take the wgmma variant")
-    return {"launches": launches, "runs": runs, "scores": all_scores}
+    return {"launches": launches, "runs": runs, "scores": all_scores,
+            "k6_launches": fwd}
 
 
 def check_capped_fold(weights, tiles, uncapped: dict, card: str) -> None:
@@ -891,6 +910,50 @@ def check_pool_kernel(pool) -> dict:
     torch.cuda.empty_cache()
     return {"max_abs_err": 0.0, "ms": total["ms"], "plain_ms": total["plain_ms"],
             **bound_totals(bounds)}
+
+
+def check_max_pool_fwd_kernel(pool) -> dict:
+    """Phase 2b: K6 kernel vs plain, bitwise, at the six pools of a dense
+    int8 forward of dilated_grsl_rate8 (8 x 336^2), each timed (device
+    time, CUDA-graph replay) beside its byte bound, the plain composition
+    (what the int8 forward ran before K6) and ATen's float32 max_pool2d at
+    the same shape (library_ms; ATen pools no int8 on the card). Values
+    on a 1/16 grid give ties."""
+    dev = torch.device(DEVICE)
+    total, bounds = collections.Counter(), collections.Counter()
+    for c, mode in K6_POOLS:
+        shape = (DENSE_BATCH, DENSE_EXT, DENSE_EXT, c)
+        gen = torch.Generator(dev).manual_seed(c + len(mode))
+        xf = torch.round(torch.randn(shape, device=dev, generator=gen) * 64) / 16
+        sx = torch.tensor(0.0371, device=dev) if mode == "f32_i8" else None
+        x = pool.quantize_act(xf, torch.tensor(0.25, device=dev)) if mode == "i8" else xf
+        xc = x.permute(0, 3, 1, 2)
+        before = pool.fwd_launches[mode]
+        got = pool.max_pool_fwd(xc, 3, sx).permute(0, 2, 3, 1)
+        want = pool.max_pool_fwd_ref(x, 3, sx)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want) or pool.fwd_launches[mode] != before + 1:
+            raise SystemExit(f"K6 {shape} {mode}: kernel disagrees with plain")
+        ms = graph_ms(lambda: pool.max_pool_fwd(xc, 3, sx))
+        plain = graph_ms(lambda: pool.max_pool_fwd_ref(x, 3, sx))
+        xl = xf.permute(0, 3, 1, 2)
+        aten = graph_ms(lambda: torch.nn.functional.max_pool2d(xl, 3, 1, 1))
+        # Each input value read once and each output value written once.
+        nbytes = x.numel() * (x.element_size() + got.element_size())
+        bound, bound_by = bound_ms(9.0 * x.numel(), nbytes, F32_PEAK)
+        log(f"K6 max_pool_s1 fwd {shape} {mode}: == plain bitwise; {ms:.4f} ms (device), "
+            f"{nbytes / ms / 1e6:.0f} GB/s, bound {bound:.4f} ms ({bound_by}), "
+            f"{bound / ms:.3f} of the bound; plain {plain:.4f} ms; ATen f32 max_pool2d "
+            f"{aten:.4f} ms")
+        total.update(ms=ms, plain_ms=plain, library_ms=aten)
+        bounds[bound_by] += bound
+        del x, xf, got, want
+    log(f"K6 over the six pools: {total['ms']:.4f} ms against a bound of "
+        f"{sum(bounds.values()):.4f} ms ({sum(bounds.values()) / total['ms']:.3f}); plain "
+        f"{total['plain_ms']:.4f} ms, ATen f32 {total['library_ms']:.4f} ms")
+    torch.cuda.empty_cache()
+    return {"max_abs_err": 0.0, "ms": total["ms"], "plain_ms": total["plain_ms"],
+            "library_ms": total["library_ms"], **bound_totals(bounds)}
 
 
 def train_config(pool_backward: str, niter: int, ema: bool, width: float = 1.0,
@@ -2852,12 +2915,14 @@ def main() -> int:
         if "entry function" in line or "registers" in line or "spill" in line:
             log(f"  ptxas: {line.strip()}")
 
-    # The serving path (K5).
+    # The serving path (K5, K6).
     k5 = check_kernel_geometries(int8_conv)
+    k6 = check_max_pool_fwd_kernel(pool)
     weights = {k: v.to(DEVICE) for k, v in
                seeded_weights(config("window", "none").model, 3).items()}
     check_against_cpu(weights)
     k5.update(run_slice(weights, int8_conv, card))
+    k6["launches"] = k5.pop("k6_launches")
     f32_runs, f32_scores = k5.pop("runs"), k5.pop("scores")
     check_capped_fold(weights, f32_runs[0][2], f32_scores["window float"], card)
     check_real_activations(weights, int8_conv)
@@ -2904,9 +2969,10 @@ def main() -> int:
     run_reference_init(card)
 
     def entry(name, source, replaces, k):
-        # library_ms: no single PyTorch call computes any of the four
-        # functions (no CUDA int8 conv; ATen's max-pool backward routes a
-        # tie to the first max; the gather fuses crop, normalise and labels).
+        # library_ms: no single PyTorch call computes K5, K2, K4 or P1 (no
+        # CUDA int8 conv; ATen's max-pool backward routes a tie to the first
+        # max; the gather fuses crop, normalise and labels); K6's is ATen's
+        # float32 max_pool2d at its shapes.
         # K5 adds its bf16 store's time, bound and launches (phases 12-13)
         # and its launches in the HTTP server over phase 17's requests; K5,
         # K2 and K4 each rank's launches in phase 18; K2 its launches in
@@ -2920,12 +2986,13 @@ def main() -> int:
                 "replaces": replaces, "launches": k["launches"],
                 "max_abs_err": k["max_abs_err"], "ms": k["ms"],
                 "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-                "bound_by": k["bound_by"], "library_ms": None, **extra}
+                "bound_by": k["bound_by"], "library_ms": k.get("library_ms"), **extra}
 
     print(json.dumps({"kernels": [
         entry("int8_block_conv", KERNEL_SOURCE, KERNEL_REPLACES, k5),
         entry("patch_gather", GATHER_SOURCE, GATHER_REPLACES, k2),
         entry("pool_bwd", POOL_SOURCE, POOL_REPLACES, k4),
+        entry("max_pool_s1_fwd", K6_SOURCE, K6_REPLACES, k6),
         entry("int8_conv3x3.wgmma", P1_SOURCE, P1_REPLACES, p1)]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

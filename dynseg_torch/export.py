@@ -14,9 +14,11 @@ height, width), each saved with `torch.export.save`:
 
 A float artifact needs only torch to run. An int8 artifact calls K5 as
 the registered operator `dynseg_torch::int8_block_conv` (one call per
-quantized block), so it needs `dynseg_torch` importable and, on the card,
-the kernel library it builds; its manifest lists the op under
-"custom_ops" and `ExportedPredictor.load` registers it first.
+quantized block) and K6 as `dynseg_torch::max_pool_s1` (one call per
+pool), so it needs `dynseg_torch` importable and, on the card, the kernel
+library it builds; its manifest lists the ops under "custom_ops" and
+`ExportedPredictor.load` registers them first. An int8 artifact written
+before K6 lists K5 alone (its pools are ATen's) and loads as it is.
 
 Artifacts on disk (under <output_path>/export/):
     predictor.pt2, predictor_u8.pt2, dense_labels_u8.pt2   the programs
@@ -27,6 +29,7 @@ from __future__ import annotations
 
 import dataclasses
 import hashlib
+import importlib
 import io
 import json
 import os
@@ -40,9 +43,11 @@ from dynseg_torch.config import Config
 
 ARTIFACT = "predictor.pt2"
 MANIFEST = "manifest.json"
-# The operator an int8 artifact calls, registered by this module.
-CUSTOM_OPS_MODULE = "dynseg_torch.ops.int8_conv"
+# The operators an int8 artifact calls, each with the module that
+# registers it.
 INT8_OP = "dynseg_torch::int8_block_conv"
+POOL_OP = "dynseg_torch::max_pool_s1"
+CUSTOM_OPS = {INT8_OP: "dynseg_torch.ops.int8_conv", POOL_OP: "dynseg_torch.ops.pool"}
 
 
 class _Entry(nn.Module):
@@ -188,7 +193,7 @@ def export_predictor(
         },
     }
     if quantized:
-        manifest["custom_ops"] = [INT8_OP]
+        manifest["custom_ops"] = [INT8_OP, POOL_OP]
     manifest.update(extra_meta or {})
     _write_manifest(out_dir, manifest)
     checked = [d for d in platforms if _torch_device_type(d)]
@@ -278,10 +283,11 @@ class ExportedPredictor:
             # nets do (cuDNN would run them in TF32 by default).
             torch.backends.cudnn.allow_tf32 = False
             torch.backends.cuda.matmul.allow_tf32 = False
-        if manifest.get("custom_ops"):
-            import importlib
-
-            importlib.import_module(CUSTOM_OPS_MODULE)
+        for op in manifest.get("custom_ops", ()):
+            if op not in CUSTOM_OPS:
+                raise ValueError(f"artifact under {export_dir} calls {op}, which "
+                                 f"this version of dynseg_torch does not register")
+            importlib.import_module(CUSTOM_OPS[op])
         arts = manifest.get("artifacts") or {
             "probs": {"file": manifest["artifact"], "sha256": manifest["sha256"]},
         }

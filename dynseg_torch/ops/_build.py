@@ -58,6 +58,10 @@ def _bind(lib: ctypes.CDLL) -> None:
     # x, y, g, gdc, dx, B, H, W, C, window, variant, tile_h, tile_w, stream
     fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, p]
     fn.restype = ctypes.c_int
+    fn = lib.dynseg_max_pool_s1
+    # x, y, scale, B, H, W, C, window, mode, rows, stream
+    fn.argtypes = [p, p, p, i, i, i, i, i, i, i, p]
+    fn.restype = ctypes.c_int
     fn = lib.dynseg_int8_conv3x3
     # x, w_packed, out, B, H, W, C, dilation, scale, variant, stream
     fn.argtypes = [p, p, p, i, i, i, i, i, f, i, p]

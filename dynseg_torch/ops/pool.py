@@ -1,5 +1,5 @@
 """K4, the stride-1 SAME max-pool and its backward (counterpart of
-dynseg/ops/pool.py).
+dynseg/ops/pool.py), and K6, the int8 forward's one-pass max-pool.
 
 `max_pool_s1` is the pool of a block built with pool_backward="pallas":
 its forward is ATen's max-pool and its backward is the tie-split
@@ -26,6 +26,18 @@ cannot express, and a bfloat16 input (compute_dtype="bfloat16") is not
 K4's type: as in the reference, `max_pool_s1` then warns once per shape,
 dtype and window and takes ATen's own backward (the first max). That is
 a shape and type gate; a kernel that fails to build or launch raises.
+
+K6 (csrc/max_pool_fwd.cu) is the forward pool of the int8 forward
+(`ops.quant`): one pass over an NHWC tensor that writes only the max, in
+the output's own type, through the registered operator
+`dynseg_torch::max_pool_s1`. Its mode follows from the input's dtype and
+whether an out-scale is given (`fwd_mode`): "i8" pools int8 codes as
+int8, "f32_i8" pools float32 and quantizes the max once to int8 at the
+scale (equal to quantize-then-pool, since the quantize is monotone), "f32"
+pools float32. On the CPU the op runs `max_pool_fwd_ref`, the plain
+composition; on the card it launches the kernel. `fwd_launches` counts
+its launches by mode. `pool_forward` and `max_pool_s1`, the pools of the
+train-capable nets, do not use it.
 """
 
 from __future__ import annotations
@@ -47,11 +59,22 @@ _TILE = 16
 _SMEM_LIMIT = 232448
 
 
+# K6's load/store modes (the C entry's mode codes) and its launches by mode.
+FWD_MODES = ("i8", "f32_i8", "f32")
+fwd_launches = dict.fromkeys(FWD_MODES, 0)
+# K6's strip: output rows a thread walks down H. Over the dense int8
+# forward's six pools on an H100, strips of 4 and 16 rows were the fastest
+# of 2 to 64, within 1 % of each other (a whole 336-row column took twice
+# as long).
+_FWD_ROWS = 16
+
+
 def reset_launches() -> None:
     global launches
     launches = 0
-    for v in VARIANTS:
-        variant_launches[v] = 0
+    for counts in (variant_launches, fwd_launches):
+        for v in counts:
+            counts[v] = 0
 
 
 def pool_forward(x: torch.Tensor, window: int) -> torch.Tensor:
@@ -238,3 +261,93 @@ def max_pool_s1(x: torch.Tensor, window: int = 3) -> torch.Tensor:
             f"window) — falling back to ATen's max-pool backward",
             RuntimeWarning, stacklevel=2)
     return pool_forward(x, window)
+
+
+def quantize_act(x: torch.Tensor, sx: torch.Tensor) -> torch.Tensor:
+    """Per-tensor symmetric int8 codes of x at scale sx (a float32 tensor):
+    round(clamp(x / sx, -127, 127)), rounding half to even."""
+    return torch.round(torch.clamp(x.float() / sx, -127.0, 127.0)).to(torch.int8)
+
+
+def fwd_mode(dtype: torch.dtype, scaled: bool) -> str:
+    """K6's mode for an input of `dtype`, with or without an out-scale."""
+    if dtype == torch.int8 and not scaled:
+        return "i8"
+    if dtype == torch.float32:
+        return "f32_i8" if scaled else "f32"
+    raise TypeError(f"max_pool_s1 forward: int8 codes, or float32 with or without "
+                    f"an out-scale, required; got {dtype}"
+                    f"{' with an out-scale' if scaled else ''}")
+
+
+def max_pool_fwd_ref(x: torch.Tensor, window: int,
+                     scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain PyTorch version of K6 on any device, NHWC (B, H, W, C) in and
+    out: "f32" is `pool_forward`; "i8" pools the codes in float32, which
+    is exact, and casts back; "f32_i8" quantizes to `scale` first."""
+    mode = fwd_mode(x.dtype, scale is not None)
+    xc = x.permute(0, 3, 1, 2)
+    if mode == "f32":
+        y = pool_forward(xc, window)
+    else:
+        if mode == "f32_i8":
+            xc = quantize_act(xc, scale)
+        y = pool_forward(xc.float(), window).to(torch.int8)
+    return y.permute(0, 2, 3, 1).contiguous()
+
+
+# K6 as a registered operator, so that the int8 serving artifact
+# (`dynseg_torch.export`) calls it as one node and launches the kernel
+# when it runs on the card. On the CPU the op runs the plain version.
+@torch.library.custom_op("dynseg_torch::max_pool_s1", mutates_args=(),
+                         device_types="cpu")
+def _fwd_op(x: torch.Tensor, window: int,
+            scale: Optional[torch.Tensor]) -> torch.Tensor:
+    return max_pool_fwd_ref(x, window, scale)
+
+
+@_fwd_op.register_fake
+def _(x, window, scale):
+    mode = fwd_mode(x.dtype, scale is not None)
+    return x.new_empty(x.shape, dtype=torch.float32 if mode == "f32" else torch.int8)
+
+
+@_fwd_op.register_kernel("cuda")
+def _fwd_launch(x, window, scale):
+    """The op on the card: one launch of csrc/max_pool_fwd.cu, counted. A
+    launch that fails raises; nothing falls back to the plain version."""
+    mode = fwd_mode(x.dtype, scale is not None)
+    if not x.is_contiguous():
+        raise ValueError("max_pool_s1 forward: x must be NHWC-contiguous")
+    if not 1 <= window <= 7:
+        raise ValueError(f"max_pool_s1 forward: window {window} not in 1..7")
+    if scale is not None and (scale.device != x.device or scale.dtype != torch.float32
+                              or scale.numel() != 1):
+        raise ValueError(f"max_pool_s1 forward: the scale must be one float32 on "
+                         f"{x.device}, got {tuple(scale.shape)} {scale.dtype} on "
+                         f"{scale.device}")
+    y = torch.empty(x.shape, device=x.device,
+                    dtype=torch.float32 if mode == "f32" else torch.int8)
+    if y.numel() == 0:
+        return y
+    from dynseg_torch.ops._build import load_library
+
+    b, h, w, c = x.shape
+    err = load_library().dynseg_max_pool_s1(
+        x.data_ptr(), y.data_ptr(), None if scale is None else scale.data_ptr(),
+        b, h, w, c, window, FWD_MODES.index(mode), _FWD_ROWS,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"max_pool_s1 forward launch failed: CUDA error {err}")
+    fwd_launches[mode] += 1
+    return y
+
+
+def max_pool_fwd(x: torch.Tensor, window: int,
+                 scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K6: the stride-1 SAME max-pool of an NCHW tensor (int8 codes, or
+    float32 quantized to int8 at `scale` when given, or float32), padded
+    like XLA's SAME, through the registered op. Returns NCHW in the
+    channels_last format: int8 for "i8" and "f32_i8", else float32. CPU
+    tensors take the plain version; CUDA tensors launch the kernel."""
+    return _fwd_op(_nhwc(x), window, scale).permute(0, 3, 1, 2)

@@ -8,6 +8,13 @@ quantizes only blocks whose channel dims are both >= min_ch. Between two
 quantized blocks the activations stay int8: the earlier block requantizes
 in its epilogue and its max-pool runs on the int8 codes.
 
+Every pool of the forward goes through K6 (`ops.pool.max_pool_fwd`), one
+pass that writes only the max in the output's own type: int8 codes pool
+as int8, and the float block whose output streams int8 pools in float32
+and quantizes the max once (equal to quantizing first, since the quantize
+is monotone). Under compute_dtype bfloat16 the float pools stay on ATen
+(`pool_forward`), and such a block quantizes first.
+
 Every quantized block's conv goes through K5 (`ops.int8_conv`) with the
 dequant and BN folded into y = A*acc + B. That is the port's only int8
 route, whatever ModelConfig.quant_conv says: the reference's other route
@@ -38,7 +45,8 @@ from dynseg_torch.config import ModelConfig
 from dynseg_torch.models.dilated import arch, compute_dtype, to_nchw
 from dynseg_torch.ops.int8_conv import (PackedConv, int8_block_conv_packed,
                                        pack_conv)
-from dynseg_torch.ops.pool import pool_forward
+from dynseg_torch.ops.pool import max_pool_fwd, pool_forward
+from dynseg_torch.ops.pool import quantize_act as _quantize_act
 
 
 def _dense_wired(mcfg: ModelConfig) -> bool:
@@ -91,14 +99,15 @@ def _percentile(x: torch.Tensor, pct: float) -> torch.Tensor:
     return v[lo_i] * w_low.to(v.device) + v[hi_i] * w_high.to(v.device)
 
 
-def _quantize_act(x: torch.Tensor, sx: torch.Tensor) -> torch.Tensor:
-    return torch.round(torch.clamp(x.float() / sx, -127.0, 127.0)).to(torch.int8)
-
-
-def _pool_int8(y: torch.Tensor, window: int) -> torch.Tensor:
-    # No int8 max-pool on every device: pool the codes in float32, which
-    # is exact, and cast back.
-    return pool_forward(y.float(), window).to(torch.int8)
+def _pool(y: torch.Tensor, window: int, out_scale=None) -> torch.Tensor:
+    """A block's pool: K6 on int8 codes and on float32, with the quantize
+    to `out_scale` fused where given. A bfloat16 map pools on ATen, after
+    the quantize where it streams int8 (then its codes pool on K6)."""
+    if y.dtype == torch.bfloat16:
+        if out_scale is None:
+            return pool_forward(y, window)
+        y, out_scale = _quantize_act(y, out_scale), None
+    return max_pool_fwd(y, window, out_scale)
 
 
 def _fold(mcfg: ModelConfig, p: Dict[str, torch.Tensor]):
@@ -154,8 +163,9 @@ def _block_forward(mcfg: ModelConfig, spec: dict, p: Dict[str, torch.Tensor],
     block's entries with the "blocks.{i}." prefix stripped; `pc`, its K5
     operands, marks it quantized. When `in_scale` is set, `x` is already
     int8 at that scale; when `out_scale` is set, the epilogue requantizes
-    (`pc` was packed with it) and the pool runs on int8. Returns (y,
-    carried_scale), where carried_scale is out_scale iff y is int8."""
+    (`pc` was packed with it) and the pool runs on int8, or a float
+    block's pool quantizes its max. Returns (y, carried_scale), where
+    carried_scale is out_scale iff y is int8."""
     dtype = compute_dtype(mcfg)
     if in_scale is None:
         x = x.to(dtype)
@@ -166,9 +176,7 @@ def _block_forward(mcfg: ModelConfig, spec: dict, p: Dict[str, torch.Tensor],
     if pc is not None:
         xq = x if in_scale is not None else _quantize_act(x, p["act_scale"])
         y = int8_block_conv_packed(xq.permute(0, 2, 3, 1), pc).permute(0, 3, 1, 2)
-        if out_scale is not None:
-            return (_pool_int8(y, window) if window else y), out_scale
-        return (pool_forward(y, window) if window else y), None
+        return (_pool(y, window) if window else y), out_scale
     if in_scale is not None:
         x = (x.float() * in_scale).to(dtype)
     y = F.conv2d(x, p["conv.weight"].to(dtype), padding="same",
@@ -188,10 +196,9 @@ def _block_forward(mcfg: ModelConfig, spec: dict, p: Dict[str, torch.Tensor],
     else:
         y = y + cast("conv.bias")
     y = F.leaky_relu(y, mcfg.leaky_slope)
-    if out_scale is not None:
-        y = _quantize_act(y, out_scale)
-        return (_pool_int8(y, window) if window else y), out_scale
-    return (pool_forward(y, window) if window else y), None
+    if window:
+        return _pool(y, window, out_scale), out_scale
+    return (y if out_scale is None else _quantize_act(y, out_scale)), out_scale
 
 
 def _block_params(variables: Dict[str, torch.Tensor], spec: dict) -> dict:

@@ -1,6 +1,7 @@
 """dynseg_torch's CUDA kernels on the card: K5 (csrc/int8_block_conv.cu),
-K2 (csrc/patch_gather.cu), K4 (csrc/pool_bwd.cu) and P1
-(csrc/int8_conv3x3.cu) against their plain PyTorch versions, and the int8 serving path and a train step on the card
+K2 (csrc/patch_gather.cu), K4 (csrc/pool_bwd.cu), K6
+(csrc/max_pool_fwd.cu) and P1 (csrc/int8_conv3x3.cu) against their plain
+PyTorch versions, and the int8 serving path and a train step on the card
 against the same on the CPU. Marked `gpu`; every test skips where
 torch.cuda.is_available() is false. On a machine with a card and without
 JAX (these tests import none), run
@@ -319,6 +320,130 @@ def test_max_pool_s1_on_card_matches_cpu(cuda):
         (pool.max_pool_s1(x, 3) * torch.from_numpy(w_np).to(dev)).sum().backward()
         grads.append(x.grad.cpu())
     assert torch.equal(grads[0], grads[1])
+
+
+# (B, H, W, C, window): K6 at the dense int8 cell's pools (8 x 336^2 at C
+# 64, 128, 192), the window int8 batch, the serve path's dense call, then
+# ragged C (3, 40, 200), tiny images and windows 2, 4, 5 and 7.
+K6 = [
+    (8, 336, 336, 64, 3), (8, 336, 336, 128, 3), (8, 336, 336, 192, 3),
+    (256, 65, 65, 128, 3), (8, 1104, 1104, 128, 3),
+    (2, 17, 19, 3, 3), (2, 23, 9, 40, 3), (1, 31, 33, 200, 3),
+    (1, 1, 1, 16, 3), (2, 7, 5, 32, 2), (1, 6, 9, 16, 4), (2, 10, 7, 8, 5), (1, 9, 6, 64, 7),
+]
+
+
+def _k6_case(cuda, case, mode, offset=0):
+    """x (and the scale) of a K6 case in `mode`: codes over the whole int8
+    range with ties; floats on a grid of half-steps of sx, so that x / sx
+    lands on exact .5 boundaries and past +-127. With `offset`, x starts
+    that many elements past the allocation."""
+    b, h, w, c, _ = case
+    gen = torch.Generator(cuda).manual_seed(sum(case) * 3 + pool.FWD_MODES.index(mode))
+    shape = (b, h, w, c)
+    n = b * h * w * c
+    if mode == "i8":
+        flat = torch.randint(-128, 128, (n + offset,), generator=gen, device=cuda,
+                             dtype=torch.int16).to(torch.int8)
+        flat[offset:] = torch.where(flat[offset:] % 5 == 0, -flat[offset:] // 3, flat[offset:])
+        return flat[offset:].view(shape), None
+    sx = torch.tensor(0.0371, device=cuda)
+    half = torch.randint(-300, 301, (n + offset,), generator=gen, device=cuda).float()
+    flat = half * 0.5 * sx
+    return flat[offset:].view(shape), (sx if mode == "f32_i8" else None)
+
+
+@pytest.mark.parametrize("mode", pool.FWD_MODES)
+@pytest.mark.parametrize("case", K6, ids=lambda c: "x".join(map(str, c)))
+def test_max_pool_fwd_kernel_matches_plain_bitwise(cuda, case, mode):
+    """K6 in each mode equals the plain composition bitwise, and counts
+    one launch of that mode."""
+    x, sx = _k6_case(cuda, case, mode)
+    before = dict(pool.fwd_launches)
+    got = pool.max_pool_fwd(x.permute(0, 3, 1, 2), case[4], sx).permute(0, 2, 3, 1)
+    assert pool.fwd_launches[mode] == before[mode] + 1
+    assert sum(pool.fwd_launches.values()) == sum(before.values()) + 1
+    want = pool.max_pool_fwd_ref(x, case[4], sx)
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("mode", pool.FWD_MODES)
+@pytest.mark.parametrize("case", [K6[0], K6[6], K6[7]], ids=lambda c: "x".join(map(str, c)))
+def test_max_pool_fwd_misaligned_base_matches_plain(cuda, case, mode):
+    """x one element past a 16-byte boundary: the kernel takes one
+    element a thread and still equals the plain composition."""
+    x, sx = _k6_case(cuda, case, mode, offset=1)
+    assert x.data_ptr() % 16
+    got = pool.max_pool_fwd(x.permute(0, 3, 1, 2), case[4], sx).permute(0, 2, 3, 1)
+    want = pool.max_pool_fwd_ref(x, case[4], sx)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_max_pool_fwd_propagates_nan_and_infinities_like_aten(cuda):
+    """float32: a NaN wins its windows and -inf/+inf pool as values, as in
+    ATen's max_pool2d."""
+    x = torch.randn((2, 9, 11, 8), device=cuda)
+    x[0, 4, 5, 3] = float("nan")
+    x[1, 0, 0, :] = float("inf")
+    x[1, 8, 10, :] = float("-inf")
+    got = pool.max_pool_fwd(x.permute(0, 3, 1, 2), 3).permute(0, 2, 3, 1)
+    want = pool.max_pool_fwd_ref(x, 3)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert int(torch.isnan(got).sum()) == 9
+    keep = ~torch.isnan(want)
+    assert torch.equal(got[keep], want[keep])
+
+
+def _rate8_int8_state(cuda, dtype="float32"):
+    """A full-width dilated_grsl_rate8 int8 state_dict on the card (blocks
+    3-5 quantized, calibrated on one crop) and an input."""
+    from dynseg_torch.bridge import flax_to_torch, init_variables_np
+    from dynseg_torch.config import ModelConfig
+    from dynseg_torch.ops import quant
+
+    mcfg = ModelConfig(net_type="dilated_grsl_rate8", num_classes=6, compute_dtype=dtype)
+    sd = {k: v.to(cuda) for k, v in
+          flax_to_torch(init_variables_np(mcfg, num_input_bands=3, seed=3)).items()}
+    x = torch.from_numpy(np.random.default_rng(4).normal(
+        size=(2, 48, 40, 3)).astype(np.float32)).to(cuda)
+    ranges = quant.calibrate(mcfg, sd, [x[:1]])
+    return mcfg, quant.quantize_variables(mcfg, sd, ranges), x
+
+
+def test_max_pool_fwd_launches_per_int8_forward(cuda):
+    """One grsl_rate8 int8 forward launches K6 six times: 3 f32 (blocks 0,
+    1, 5), 1 f32_i8 (block 2, its quantize fused) and 2 i8 (blocks 3, 4),
+    and its logits equal those of the same forward with the plain pools.
+    Under bfloat16 no float pool goes through K6: blocks 0, 1 and 5 pool
+    on ATen, and the three int8 maps (blocks 2-4, block 2 quantized
+    first) on K6."""
+    from dynseg_torch.ops import quant
+
+    mcfg, qsd, x = _rate8_int8_state(cuda)
+    apply_fn = quant.make_apply(mcfg)
+    with torch.inference_mode():
+        apply_fn(qsd, x)
+        pool.reset_launches()
+        got = apply_fn(qsd, x)
+        counts = dict(pool.fwd_launches)
+        plain = quant.max_pool_fwd
+        quant.max_pool_fwd = lambda y, w, s=None: pool.max_pool_fwd_ref(
+            y.permute(0, 2, 3, 1), w, s).permute(0, 3, 1, 2)
+        try:
+            want = apply_fn(qsd, x)
+        finally:
+            quant.max_pool_fwd = plain
+    torch.cuda.synchronize()
+    assert counts == {"i8": 2, "f32_i8": 1, "f32": 3}
+    assert torch.equal(got, want)
+    mcfg, qsd, x = _rate8_int8_state(cuda, "bfloat16")
+    with torch.inference_mode():
+        pool.reset_launches()
+        quant.make_apply(mcfg)(qsd, x)
+    assert pool.fwd_launches == {"i8": 3, "f32_i8": 0, "f32": 0}
 
 
 def test_train_step_on_card_matches_cpu(cuda):

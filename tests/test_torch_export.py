@@ -6,6 +6,7 @@ labels entry point at halo 40 and 0, the manifest's keys, the checksum,
 and --operation export from a checkpoint."""
 
 import dataclasses
+import json
 import os
 import pickle
 import shutil
@@ -195,8 +196,8 @@ def test_int8_artifact_matches_reference_artifact(tmp_path, exit_int8):
     K5's op; the JAX side through its K5 route, interpret mode) on a
     21 x 24 raster, within the bound of
     tests/test_torch_quant.py::test_mixed_forward_matches_reference_k5_route
-    (2e-2) and with equal labels; the program calls the op once per
-    quantized block."""
+    (2e-2) and with equal labels; the program calls K5's op once per
+    quantized block and K6's once per pool, and no ATen pool."""
     cfg = _cfg("dilated_icpr_rate6", width=1.0, classes=4, quant_conv="pallas")
     variables = _seeded(cfg, 0)
     x = np.random.default_rng(1).uniform(0, 255, size=(1, 21, 24, 3)).astype(np.float32)
@@ -209,14 +210,67 @@ def test_int8_artifact_matches_reference_artifact(tmp_path, exit_int8):
     assert m["quant"] == "int8" and m["quant_exit"] == exit_int8
     assert m["quant_blocks"] == ref.manifest["quant_blocks"] == [
         "DilatedConvBlock_3", "DilatedConvBlock_4", "DilatedConvBlock_5"]
-    assert m["custom_ops"] == ["dynseg_torch::int8_block_conv"]
+    assert m["custom_ops"] == ["dynseg_torch::int8_block_conv", "dynseg_torch::max_pool_s1"]
     got, want = port.probs(x), ref.probs(x)
     np.testing.assert_allclose(got, want, rtol=0, atol=2e-2)
     np.testing.assert_array_equal(got.argmax(-1), want.argmax(-1))
     program = torch.export.load(str(tmp_path / "port" / ARTIFACT))
-    ops = [n for n in program.graph.nodes
-           if "int8_block_conv" in str(getattr(n, "target", ""))]
-    assert len(ops) == 3
+    targets = [str(getattr(n, "target", "")) for n in program.graph.nodes]
+    assert sum("int8_block_conv" in t for t in targets) == 3
+    assert sum("max_pool_s1" in t for t in targets) == 6
+    assert not any("max_pool2d" in t for t in targets)
+
+
+def _aten_pool(y, window, scale=None):
+    """The int8 forward's pools before K6, on NCHW maps: quantize first,
+    then int8 codes pooled in float32 by ATen and cast back."""
+    if scale is not None:
+        y = quant._quantize_act(y, scale)
+    if y.dtype == torch.int8:
+        return quant.pool_forward(y.float(), window).to(torch.int8)
+    return quant.pool_forward(y, window)
+
+
+def test_int8_artifacts_load_in_a_fresh_process(tmp_path, monkeypatch):
+    """An int8 artifact exported now (K5 and K6 ops) and one as exported
+    before K6 (ATen pools, a manifest listing K5 alone) each load in a
+    fresh process, which registers the ops the manifest names, and give
+    the probabilities they give here."""
+    cfg = _cfg("dilated_icpr_rate6", width=1.0, classes=4)
+    variables = _seeded(cfg, 2)
+    sd = flax_to_torch(variables)
+    x = np.random.default_rng(3).uniform(0, 255, size=(1, 13, 11, 3)).astype(np.float32)
+    mcfg = _as(port_config, cfg.model)
+    ranges = quant.calibrate(mcfg, sd, [torch.from_numpy((x - MEAN) / STD)])
+    qsd = quant.quantize_variables(mcfg, sd, ranges)
+    new, old = str(tmp_path / "new"), str(tmp_path / "old")
+    export_predictor(_as(port_config, cfg), sd, MEAN, STD, new, quant_variables=qsd)
+    monkeypatch.setattr(quant, "max_pool_fwd", _aten_pool)
+    export_predictor(_as(port_config, cfg), sd, MEAN, STD, old, quant_variables=qsd)
+    monkeypatch.undo()
+    manifest = os.path.join(old, "manifest.json")
+    with open(manifest) as f:
+        meta = json.load(f)
+    meta["custom_ops"] = ["dynseg_torch::int8_block_conv"]
+    with open(manifest, "w") as f:
+        json.dump(meta, f)
+    programs = {d: torch.export.load(os.path.join(d, ARTIFACT)) for d in (new, old)}
+    assert any("max_pool_s1" in str(n.target) for n in programs[new].graph.nodes)
+    assert not any("max_pool_s1" in str(n.target) for n in programs[old].graph.nodes)
+    np.save(tmp_path / "x.npy", x)
+    code = "\n".join([
+        "import sys, numpy as np",
+        "from dynseg_torch.export import ExportedPredictor",
+        "x = np.load(sys.argv[1])",
+        "for d in sys.argv[2:]:",
+        "    np.save(d + '.npy', ExportedPredictor.load(d, device='cpu').probs(x))",
+    ])
+    env = {**os.environ, "PYTHONPATH": REPO}
+    subprocess.run([sys.executable, "-c", code, str(tmp_path / "x.npy"), new, old],
+                   check=True, timeout=300, env=env, cwd=str(tmp_path))
+    here = ExportedPredictor.load(new, device="cpu").probs(x)
+    np.testing.assert_array_equal(np.load(new + ".npy"), here)
+    np.testing.assert_array_equal(np.load(old + ".npy"), here)
 
 
 @pytest.mark.parametrize("halo", [40, 0])

@@ -1,8 +1,11 @@
 """K4's plain PyTorch version (dynseg_torch.ops.pool) against the JAX
 package's Pallas pool backward in interpret mode, on the cases of
-tests/test_pallas.py; MaxPoolS1's gradient through torch.autograd; and
-the port's default pool backward (ATen, first max in window order)
-against XLA's select_and_scatter on tie-rich inputs."""
+tests/test_pallas.py; MaxPoolS1's gradient through torch.autograd; the
+port's default pool backward (ATen, first max in window order) against
+XLA's select_and_scatter on tie-rich inputs; and K6's operator
+(`dynseg_torch::max_pool_s1`) on the CPU, its plain route, against the
+compositions the int8 forward ran before it and the reference's int8
+pool (`lax.reduce_window` with an int8 -128 pad)."""
 
 import warnings
 
@@ -14,6 +17,7 @@ import torch
 
 import dynseg.ops.pool as jax_pool
 from dynseg_torch.ops import pool
+from dynseg_torch.ops.pool import pool_forward
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -233,3 +237,99 @@ def test_bfloat16_max_pool_s1_warns_once_and_takes_aten_backward():
     torch.nn.functional.max_pool2d(xa, 3, stride=1, padding=1).backward(g)
     assert y.dtype == torch.bfloat16 and x.grad.dtype == torch.bfloat16
     assert torch.equal(x.grad, xa.grad)
+
+
+# (H, W, C, window): every H and W from 1 to 7, C in {1, 3, 16, 40, 72},
+# windows 2 to 5 (even windows split SAME as XLA does, extra after).
+FWD = [(1 + i % 7, 1 + (3 * i + 2) % 7, (1, 3, 16, 40, 72)[i % 5], 2 + i % 4)
+       for i in range(20)]
+
+
+def _fwd_input(case, mode):
+    """Codes over the whole int8 range, a third of them tied at a few
+    values; floats on a grid of half-steps of sx, so that x / sx lands on
+    exact .5 boundaries, ties and values past +-127 sx. (x, sx)."""
+    h, w, c, window = case
+    rng = np.random.default_rng(h * 1000 + w * 100 + c + window)
+    shape = (2, h, w, c)
+    if mode == "i8":
+        codes = rng.integers(-128, 128, shape)
+        codes = np.where(rng.random(shape) < 0.33, codes // 64 * 64, codes)
+        return torch.from_numpy(codes.astype(np.int8)), None
+    sx = torch.tensor(0.0371, dtype=torch.float32)
+    half = rng.integers(-300, 301, shape).astype(np.float32)
+    x = torch.from_numpy(half) * 0.5 * sx
+    return x, (sx if mode == "f32_i8" else None)
+
+
+def _composition(x, window, sx):
+    """What the int8 forward ran before K6, on an NHWC tensor: the
+    quantize (divide, clamp, round, cast), then an int8 map pooled in
+    float32 by ATen and cast back; a float map pooled by ATen."""
+    xc = x.permute(0, 3, 1, 2)
+    if sx is not None:
+        xc = torch.round(torch.clamp(xc.float() / sx, -127.0, 127.0)).to(torch.int8)
+    if xc.dtype == torch.int8:
+        y = pool_forward(xc.float(), window).to(torch.int8)
+    else:
+        y = pool_forward(xc, window)
+    return y.permute(0, 2, 3, 1)
+
+
+@pytest.mark.parametrize("mode", pool.FWD_MODES)
+@pytest.mark.parametrize("case", FWD, ids=lambda c: "x".join(map(str, c)))
+def test_max_pool_fwd_plain_route_equals_composition(case, mode):
+    """The op on the CPU (through `max_pool_fwd`, NCHW in and out) equals
+    the composition it replaces, bitwise and in its dtype, and launches
+    no kernel."""
+    x, sx = _fwd_input(case, mode)
+    before = dict(pool.fwd_launches)
+    xc = x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+    got = pool.max_pool_fwd(xc, case[3], sx)
+    want = _composition(x, case[3], sx).permute(0, 3, 1, 2)
+    assert got.dtype == (torch.float32 if mode == "f32" else torch.int8)
+    assert got.shape == xc.shape and torch.equal(got, want)
+    assert pool.fwd_launches == before
+
+
+@pytest.mark.parametrize("window", [2, 3, 4, 5])
+def test_pool_then_quantize_equals_quantize_then_pool(window):
+    """The kernel's f32_i8 order, the window's float32 max quantized
+    once with an IEEE divide, equals quantize-then-pool, bitwise: ties,
+    values past +-127 sx, exact .5 boundaries of x / sx (half to even)."""
+    x, sx = _fwd_input((7, 6, 40, window), "f32_i8")
+    assert bool(((x / sx) % 1 == 0.5).any()) and bool((x / sx).abs().max() > 127)
+    pooled = pool_forward(x.permute(0, 3, 1, 2), window)
+    got = torch.round(torch.clamp(pooled / sx, -127.0, 127.0)).to(torch.int8)
+    want = pool.max_pool_fwd_ref(x, window, sx).permute(0, 3, 1, 2)
+    assert torch.equal(got, want)
+    assert torch.equal(pool.quantize_act(torch.tensor([0.5, 1.5, -2.5, 1e9]) * sx, sx),
+                       torch.tensor([0, 2, -2, 127], dtype=torch.int8))
+
+
+@pytest.mark.parametrize("window", [2, 3, 4, 5])
+def test_int8_route_matches_reference_reduce_window(window):
+    """The i8 route against the reference's int8 pool, lax.reduce_window
+    with an int8 -128 pad and XLA's SAME split."""
+    x, _ = _fwd_input((5, 7, 16, window), "i8")
+    want = jax.lax.reduce_window(jnp.asarray(x.numpy()), jnp.int8(-128), jax.lax.max,
+                                 (1, window, window, 1), (1, 1, 1, 1), "SAME")
+    got = pool.max_pool_fwd_ref(x, window)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("mode", pool.FWD_MODES)
+def test_max_pool_s1_op_schema_and_fake(mode):
+    """The registered op's schema, fake (meta) and CPU implementations
+    agree (torch.library.opcheck)."""
+    x, sx = _fwd_input((5, 6, 16, 3), mode)
+    torch.library.opcheck(torch.ops.dynseg_torch.max_pool_s1.default, (x, 3, sx),
+                          test_utils=("test_schema", "test_faketensor"))
+
+
+@pytest.mark.parametrize("dtype, scaled", [(torch.bfloat16, False), (torch.int8, True),
+                                           (torch.float64, False)])
+def test_max_pool_fwd_refuses_other_types(dtype, scaled):
+    x = torch.zeros((1, 4, 5, 6), dtype=dtype)
+    with pytest.raises(TypeError, match="int8 codes, or float32"):
+        pool.max_pool_fwd(x, 3, torch.tensor(0.1) if scaled else None)

@@ -19,7 +19,7 @@ from dynseg.ops import quant as jax_quant
 from dynseg_torch import config as port_config
 from dynseg_torch.bridge import flax_to_torch, init_variables_np, torch_to_flax
 from dynseg_torch.models.dilated import build_model
-from dynseg_torch.ops import int8_conv, quant
+from dynseg_torch.ops import int8_conv, pool, quant
 
 
 def _port(cfg):
@@ -129,7 +129,7 @@ def _unprepared_forward(mcfg, qsd, x):
             out_scale=nxt).permute(0, 3, 1, 2)
         window = mcfg.pool_window if spec["pool"] else 0
         if nxt is not None:
-            h, carried = (quant._pool_int8(y, window) if window else y), nxt
+            h, carried = (pool.max_pool_fwd(y, window) if window else y), nxt
         else:
             h, carried = (quant.pool_forward(y, window) if window else y), None
     if carried is not None:
@@ -167,6 +167,79 @@ def test_prepared_operands_give_the_same_int8_forward(setup, exit_int8):
     assert len(calls) == 1
     for g in got:
         assert torch.equal(g, want)
+
+
+def _pre_k6_forward(mcfg, qsd, x):
+    """The sequential int8 forward as it ran before K6: each int8 map
+    pooled in float32 by ATen and cast back, and the float block whose
+    output streams int8 quantized (divide, clamp, round, cast) before its
+    pool."""
+    dtype = quant.compute_dtype(mcfg)
+    packed = quant.pack_blocks(mcfg, qsd)
+    specs = quant.block_specs(mcfg, x.shape[-1])
+
+    def quantize(y, sx):
+        return torch.round(torch.clamp(y.float() / sx, -127.0, 127.0)).to(torch.int8)
+
+    def pooled(y, window):
+        if not window:
+            return y
+        if y.dtype == torch.int8:
+            return quant.pool_forward(y.float(), window).to(torch.int8)
+        return quant.pool_forward(y, window)
+
+    h, carried = quant.to_nchw(x.float()), None
+    for i, spec in enumerate(specs):
+        p = quant._block_params(qsd, spec)
+        pc = packed.get(spec["name"])
+        out_scale = quant._out_scale(qsd, specs, i)
+        window = mcfg.pool_window if spec["pool"] else 0
+        if carried is None:
+            h = h.to(dtype)
+        if pc is not None:
+            xq = h if carried is not None else quantize(h, p["act_scale"])
+            y = int8_conv.int8_block_conv_packed(xq.permute(0, 2, 3, 1), pc)
+            h, carried = pooled(y.permute(0, 3, 1, 2), window), out_scale
+            continue
+        if carried is not None:
+            h = (h.float() * carried).to(dtype)
+        y = torch.nn.functional.conv2d(h, p["conv.weight"].to(dtype), padding="same",
+                                       dilation=spec["dilation"])
+        eps = float(torch.tensor(1e-5, dtype=dtype))
+        y = ((y - p["bn.running_mean"].to(dtype)[:, None, None])
+             * torch.rsqrt(p["bn.running_var"].to(dtype)[:, None, None] + eps)
+             * p["bn.weight"].to(dtype)[:, None, None] + p["bn.bias"].to(dtype)[:, None, None])
+        y = torch.nn.functional.leaky_relu(y, mcfg.leaky_slope)
+        if out_scale is not None:
+            y = quantize(y, out_scale)
+        h, carried = pooled(y, window), out_scale
+    if carried is not None:
+        h = (h.float() * carried).to(dtype)
+    logits = torch.nn.functional.conv2d(h.to(dtype), qsd["head.conv.weight"].to(dtype))
+    logits = logits + qsd["head.conv.bias"].to(dtype)[:, None, None]
+    return logits.float().permute(0, 2, 3, 1)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("exit_int8", [False, True], ids=["float_exit", "int8_exit"])
+def test_rate8_int8_forward_equals_the_pre_k6_composition(exit_int8, dtype):
+    """dilated_grsl_rate8 at full width (blocks 3-5 int8; block 2 float,
+    its output streaming int8): `quant._forward` through K6's op, with
+    block 2's quantize fused into its pool, gives bitwise the logits of
+    the forward that quantized first and pooled int8 codes in float32."""
+    mcfg = port_config.ModelConfig(net_type="dilated_grsl_rate8", num_classes=6,
+                                   compute_dtype=dtype)
+    sd = flax_to_torch(init_variables_np(mcfg, num_input_bands=3, seed=7))
+    x = torch.from_numpy(np.random.default_rng(8).normal(
+        size=(2, 19, 23, 3)).astype(np.float32))
+    with torch.inference_mode():
+        ranges = quant.calibrate(mcfg, sd, [x[:1]])
+        qsd = quant.quantize_variables(mcfg, sd, ranges, exit_int8=exit_int8)
+        assert sorted(k for k in qsd if k.endswith("w_scale")) == [
+            "blocks.3.w_scale", "blocks.4.w_scale", "blocks.5.w_scale"]
+        got = quant._forward(mcfg, qsd, x)
+        want = _pre_k6_forward(mcfg, qsd, x)
+    assert got.dtype == torch.float32 and torch.equal(got, want)
 
 
 @pytest.mark.parametrize("exit_int8", [False, True], ids=["float_exit", "int8_exit"])
