@@ -5,7 +5,8 @@ runs one cell of BENCHMARK.json. Everything that belongs to one
 configuration, traffic mix, per-layer metric or cell lives in a file of
 its own, found by name:
 
-    configs/<config>.json    sizes, precision, data geometry, source
+    configs/<config>.json    the net (blocks, wiring), sizes, precision,
+                             data geometry, source
     mixes/<traffic>.json     parameters and the driver module that runs them
     drivers/<driver>.py      a general driver of one kind of traffic
     metrics/<metric>.py      a reader of one per-layer metric

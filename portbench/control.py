@@ -49,15 +49,13 @@ def readings(r) -> dict:
     """{variant: numbers} of the cell's control at seed r.seed."""
     driver = load_module(r.pkg / "drivers" / f"{r.mix['driver']}.py",
                          f"portbench_driver_{r.mix['driver']}")
-    mc, data = r.config["model"], r.config["data"]
-    net, bands, nc = mc["net_type"], mc["num_input_bands"], mc["num_classes"]
-    width = mc.get("width_multiplier", 1.0)
+    data = r.config["data"]
     dev = torch.device(r.device)
     rng = np.random.default_rng([r.seed % 2 ** 63, 0xC0])
     if r.mix["driver"] == "train":
         images, masks = synth.make_tiles(data, "train", r.seed, dev)
         mean, std = synth.stats(images)
-        weights = synth.make_weights(net, bands, nc, r.seed, dev, width)
+        weights = synth.make_weights(r.net, r.seed, dev)
         p0 = {k: v.cpu() for k, v in weights.items() if ".running_" not in k}
         fed, pad = _train_batches(r, images, [m.cpu().numpy() for m in masks], rng)
         hw = [tuple(im.shape[:2]) for im in images]
@@ -69,8 +67,8 @@ def readings(r) -> dict:
         return out
     images, _ = synth.make_tiles(data, "val", r.seed, dev)
     mean, std = synth.stats(images)
-    weights = synth.make_weights(net, bands, nc, r.seed, dev, width)
-    synth.bn_from_crops(weights, net, images, mean, std, r.seed)
+    weights = synth.make_weights(r.net, r.seed, dev)
+    synth.bn_from_crops(weights, r.net, images, mean, std, r.seed)
     kept = []
     while len(kept) < r.mix["check_rects_max"]:
         t = len(kept) // r.mix["check_rects_per_tile"] % len(images)

@@ -7,16 +7,9 @@ convolution's operations are 2 per multiply-add.
 
 from __future__ import annotations
 
-from typing import List, NamedTuple
+from typing import List, NamedTuple, Tuple
 
-# (kernel, features, dilation, pool) per block, as published
-# (dynseg_torch.models.dilated._ARCH; Nogueira et al., TGRS 2019).
-ARCH = {
-    "dilated_icpr_rate6": ((5, 64, 1, True), (5, 64, 2, True), (4, 128, 3, True),
-                           (4, 128, 4, True), (3, 256, 5, True), (3, 256, 6, True)),
-    "dilated_grsl_rate8": ((5, 64, 1, True), (5, 64, 2, True), (4, 128, 3, True),
-                           (4, 128, 4, True), (3, 192, 6, True), (3, 192, 8, True)),
-}
+WIRINGS = ("sequential", "dense")
 
 
 class Block(NamedTuple):
@@ -27,14 +20,43 @@ class Block(NamedTuple):
     pool: bool
 
 
-def blocks(net: str, bands: int, width: float = 1.0) -> List[Block]:
-    """The conv blocks of `net` on `bands` input channels."""
+class Net(NamedTuple):
+    """A net as its configuration states it: the blocks with the width
+    multiplier and the wiring applied, and the 1x1 head."""
+    blocks: Tuple[Block, ...]
+    wiring: str
+    bands: int
+    classes: int
+    head_cin: int
+
+
+def net(model: dict) -> Net:
+    """The net of a configuration's `model`: `blocks` holds the published
+    [kernel, features, dilation, pool] per block, `wiring` is "sequential"
+    (block i reads block i-1's output) or "dense" (block i reads the
+    channel concat of the input bands and of every earlier block's output;
+    the head reads the concat of all block outputs, input excluded)."""
+    wiring = model["wiring"]
+    if wiring not in WIRINGS:
+        raise ValueError(f"wiring {wiring!r} not in {WIRINGS}")
+    bands, width = model["num_input_bands"], model.get("width_multiplier", 1.0)
     out, cin = [], bands
-    for k, feats, dil, pool in ARCH[net]:
+    for k, feats, dil, pool in model["blocks"]:
         cout = max(1, int(feats * width))
-        out.append(Block(k, cin, cout, dil, pool))
-        cin = cout
-    return out
+        out.append(Block(k, cin, cout, dil, bool(pool)))
+        cin = cin + cout if wiring == "dense" else cout
+    head = cin - bands if wiring == "dense" else cin
+    return Net(tuple(out), wiring, bands, model["num_classes"], head)
+
+
+def checked_net(model: dict) -> Net:
+    """net(model), refused where the configuration's own `macs_per_px`
+    is not what its blocks and wiring give."""
+    n = net(model)
+    if model.get("macs_per_px") != macs_per_px(n):
+        raise ValueError(f"the configuration states macs_per_px {model.get('macs_per_px')}; "
+                         f"its blocks and wiring give {macs_per_px(n)}")
+    return n
 
 
 def block_macs(b: Block) -> int:
@@ -42,35 +64,35 @@ def block_macs(b: Block) -> int:
     return b.k * b.k * b.cin * b.cout
 
 
-def macs_per_px(net: str, bands: int, classes: int, width: float = 1.0) -> int:
+def macs_per_px(n: Net) -> int:
     """Multiply-adds of one pixel-forward: every block and the 1x1 head."""
-    bs = blocks(net, bands, width)
-    return sum(block_macs(b) for b in bs) + bs[-1].cout * classes
+    return sum(block_macs(b) for b in n.blocks) + n.head_cin * n.classes
 
 
-def quantized(net: str, bands: int, min_ch: int, width: float = 1.0) -> List[bool]:
+def quantized(n: Net, min_ch: int) -> List[bool]:
     """Per block: True where both channel counts reach `min_ch` (the
     port's int8 plan)."""
-    return [min(b.cin, b.cout) >= min_ch for b in blocks(net, bands, width)]
+    return [min(b.cin, b.cout) >= min_ch for b in n.blocks]
 
 
-def split_macs(net: str, bands: int, classes: int, min_ch: int,
-               width: float = 1.0):
+def split_macs(n: Net, min_ch: int):
     """(float multiply-adds, int8 multiply-adds) of one pixel-forward under
     the int8 plan at `min_ch`; the head is float."""
-    bs = blocks(net, bands, width)
-    q = quantized(net, bands, min_ch, width)
-    i8 = sum(block_macs(b) for b, on in zip(bs, q) if on)
-    return macs_per_px(net, bands, classes, width) - i8, i8
+    i8 = sum(block_macs(b) for b, on in zip(n.blocks, quantized(n, min_ch)) if on)
+    return macs_per_px(n) - i8, i8
 
 
-def train_step_flops(net: str, bands: int, classes: int, batch: int, size: int,
-                     width: float = 1.0) -> float:
-    """Forward, input-gradient (none for the input image) and weight-
-    gradient operations of one train step on batch x size^2 pixels."""
-    bs = blocks(net, bands, width)
-    m = macs_per_px(net, bands, classes, width)
-    per_px = 2 * m + 2 * (m - block_macs(bs[0])) + 2 * m
+def train_step_flops(n: Net, batch: int, size: int) -> float:
+    """Forward, input-gradient and weight-gradient operations of one train
+    step on batch x size^2 pixels. An input gradient is counted only where
+    there is one to take: for every input channel of a block or the head
+    but the raw bands (sequential wiring: every block but block 0; dense:
+    every channel of every concat but the input's)."""
+    m = macs_per_px(n)
+    raw = [n.bands if i == 0 or n.wiring == "dense" else 0 for i in range(len(n.blocks))]
+    dgrad = sum(b.k * b.k * (b.cin - r) * b.cout for b, r in zip(n.blocks, raw)) \
+        + n.head_cin * n.classes
+    per_px = 2 * m + 2 * dgrad + 2 * m
     return float(per_px) * batch * size * size
 
 
@@ -99,27 +121,25 @@ def k5_bytes(batch: int, h: int, w: int, cin: int, cout: int, k: int,
     return batch * h * w * (cin + cout * out_bytes) + k * k * cin * cout + 8 * cout
 
 
-def k5_launches(net: str, bands: int, min_ch: int, batch: int, ext: int,
-                width: float = 1.0):
+def k5_launches(n: Net, min_ch: int, batch: int, ext: int):
     """The K5 launches of one forward of `batch` x ext^2 under the int8 plan:
-    (ops, bytes) each. A block whose successor is quantized stores int8,
-    the last quantized block float32."""
-    bs = blocks(net, bands, width)
-    q = quantized(net, bands, min_ch, width)
+    (ops, bytes) each. Under sequential wiring a block whose successor is
+    quantized stores int8, the last quantized block float32; under dense
+    wiring there is no int8 stream and every int8 block stores float32."""
+    q = quantized(n, min_ch)
     out = []
-    for i, (b, on) in enumerate(zip(bs, q)):
+    for i, (b, on) in enumerate(zip(n.blocks, q)):
         if not on:
             continue
-        nxt = i + 1 < len(bs) and q[i + 1]
+        nxt = n.wiring == "sequential" and i + 1 < len(n.blocks) and q[i + 1]
         out.append((k5_ops(batch, ext, ext, b.cin, b.cout, b.k),
                     k5_bytes(batch, ext, ext, b.cin, b.cout, b.k, 1 if nxt else 4)))
     return out
 
 
-def k4_launches(net: str, bands: int, batch: int, size: int, width: float = 1.0):
+def k4_launches(n: Net, batch: int, size: int):
     """The K4 launches of one train step: bytes of each pooled block."""
-    return [k4_bytes(batch, size, size, b.cout) for b in blocks(net, bands, width)
-            if b.pool]
+    return [k4_bytes(batch, size, size, b.cout) for b in n.blocks if b.pool]
 
 
 def window_origins(lo: int, hi: int, size: int, stride: int, lim: int) -> List[int]:

@@ -114,24 +114,22 @@ def numbers(answers, ref) -> dict:
 
 def reference_probs(r, weights, images, mean, std, kept, tf32: bool = False):
     """The reference's probabilities over each kept rectangle."""
-    x, mc = r.mix, r.config["model"]
-    net = mc["net_type"]
+    x = r.mix
     m = torch.as_tensor(mean, device=r.device)
     s = torch.as_tensor(std, device=r.device)
     quant = None
     if x["quant"] == "int8":
         crops = ref_seg.calib_crops(images, m, s, x["quant_calib_crops"])
-        quant = ref_seg.quantize(weights, net, mc["num_input_bands"], crops,
-                                 x["quant_calib_pct"], x["quant_min_ch"],
-                                 mc.get("width_multiplier", 1.0), tf32=tf32)
+        quant = ref_seg.quantize(weights, r.net, crops, x["quant_calib_pct"],
+                                 x["quant_min_ch"], tf32=tf32)
     out = []
     for t, rect, _ in kept:
         if x["mode"] == "dense":
-            out.append(ref_seg.dense_probs(weights, images[t], m, s, rect, net,
+            out.append(ref_seg.dense_probs(weights, images[t], m, s, rect, r.net,
                                            x["dense_halo"], quant=quant, tf32=tf32))
         else:
             acc, cnt = ref_seg.window_probs(
-                weights, images[t], m, s, rect, net, x["scales"], x["stride_fraction"],
+                weights, images[t], m, s, rect, r.net, x["scales"], x["stride_fraction"],
                 max(max(x["scales"]), x["dense_halo"]), x["window_batch"], tf32=tf32)
             out.append(acc / cnt.clamp(min=1e-9)[..., None])
     return out
@@ -142,17 +140,15 @@ def run(r) -> None:
     from dynseg_torch.infer import Inferencer
     from dynseg_torch.ops import int8_conv as k5
 
-    x, mc, data = r.mix, r.config["model"], r.config["data"]
-    net = mc["net_type"]
+    x, data = r.mix, r.config["data"]
     cfg = config(r)
     dev = torch.device(r.device)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
     images, masks = synth.make_tiles(data, "val", r.seed, dev)
     mean, std = synth.stats(images)
-    weights = synth.make_weights(net, mc["num_input_bands"], mc["num_classes"], r.seed,
-                                 dev, mc.get("width_multiplier", 1.0))
-    synth.bn_from_crops(weights, net, images, mean, std, r.seed)
+    weights = synth.make_weights(r.net, r.seed, dev)
+    synth.bn_from_crops(weights, r.net, images, mean, std, r.seed)
     tiles = pack_tiles([im.cpu().numpy().astype(np.float32) for im in images],
                        [mk.cpu().numpy().astype(np.int32) for mk in masks])
     tiles.mean, tiles.std = mean, std

@@ -27,7 +27,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from portbench import counts, synth
+from portbench import synth
 from portbench.reference import train as ref_train
 
 
@@ -161,7 +161,7 @@ def reference_steps(r, cpu_weights, fed, images, masks, hw, mean, std, pad, tf32
         if half:
             pos, aug = pos[:len(pos) // 2], aug[:len(aug) // 2]
         batches.append(ref_train.cut_batch(images, masks, hw, m, s, pos, aug, size, pad))
-    out = ref_train.train_steps(params0, batches, r.config["model"]["net_type"],
+    out = ref_train.train_steps(params0, batches, r.net,
                                 x["learning_rate"], x["momentum"], x["weight_decay"],
                                 tf32=tf32)
     return {"losses": out["losses"], "m1": {k: v.cpu() for k, v in out["m1"].items()},
@@ -175,9 +175,7 @@ def run(r) -> None:
     from dynseg_torch.sched.scheduler import ScaleScheduler
     from dynseg_torch.train import Trainer
 
-    mc, data = r.config["model"], r.config["data"]
-    net, bands, nc = mc["net_type"], mc["num_input_bands"], mc["num_classes"]
-    width = mc.get("width_multiplier", 1.0)
+    data = r.config["data"]
     cfg = config(r)
     dev = torch.device(r.device)
     if dev.type == "cuda":
@@ -187,10 +185,10 @@ def run(r) -> None:
     tiles = pack_tiles([im.cpu().numpy().astype(np.float32) for im in images],
                        [mk.cpu().numpy().astype(np.int32) for mk in masks])
     tiles.mean, tiles.std = mean, std
-    weights = synth.make_weights(net, bands, nc, r.seed, dev, width)
+    weights = synth.make_weights(r.net, r.seed, dev)
     trainables = {k: v.cpu().clone() for k, v in weights.items() if ".running_" not in k}
     trainer = Trainer(cfg, tiles, dev)
-    state = trainer.init_state(variables=synth.flax_tree(weights, len(counts.ARCH[net])))
+    state = trainer.init_state(variables=synth.flax_tree(weights, r.net))
     del weights, tiles
     r.program["setup_host_s"] = dict(trainer.setup_s)
     trainer.compile_buckets(state)

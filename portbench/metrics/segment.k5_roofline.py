@@ -8,7 +8,7 @@ from portbench import counts, peaks
 
 
 def read(r):
-    st, p, x, m = r.stretch, r.profile, r.mix, r.config["model"]
+    st, p, x = r.stretch, r.profile, r.mix
     if not st.get("tiles") or not p or not p["kernel_s"].get("K5") or x["mode"] != "dense":
         return None
     pad = max(max(x["scales"]), x["dense_halo"])
@@ -17,8 +17,7 @@ def read(r):
         h, w = st["hw"][t]
         groups, bb = counts.dense_groups(h, w, pad, x["dense_block"], x["dense_block_batch"])
         ext = min(x["dense_block"], h, w) + 2 * x["dense_halo"]
-        per = counts.k5_launches(m["net_type"], m["num_input_bands"], x["quant_min_ch"],
-                                 bb, ext, m.get("width_multiplier", 1.0))
+        per = counts.k5_launches(r.net, x["quant_min_ch"], bb, ext)
         bound += groups * sum(peaks.bound_s(o, b, peaks.INT8_OPS) for o, b in per)
         launches += groups * len(per)
     if p["kernel_launches"].get("K5") != launches or r.program.get("k5_launches") != launches:

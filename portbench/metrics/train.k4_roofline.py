@@ -11,11 +11,9 @@ def read(r):
     st, p = r.stretch, r.profile
     if not st.get("steps") or not p or not p["kernel_s"].get("K4"):
         return None
-    m = r.config["model"]
     bound, launches = 0.0, 0
     for s, n in st["steps"].items():
-        per = counts.k4_launches(m["net_type"], m["num_input_bands"], st["batch"][s], s,
-                                 m.get("width_multiplier", 1.0))
+        per = counts.k4_launches(r.net, st["batch"][s], s)
         bound += n * sum(b / peaks.HBM_BYTES_S for b in per)
         launches += n * len(per)
     if p["kernel_launches"].get("K4") != launches or r.program.get("k4_launches") != launches:

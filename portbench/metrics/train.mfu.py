@@ -1,5 +1,5 @@
 """train.mfu: the share (%) of the float32 peak that the window's training
-reached: forward, input-gradient (none for the input image) and
+reached: forward, input-gradient (none for the input bands) and
 weight-gradient operations of every completed step, from shapes, at 67
 TFLOP/s (TF32 off), over the window's wall time."""
 
@@ -12,8 +12,6 @@ def read(r):
     w = r.window
     if not w.get("steps") or w["seconds"] <= 0:
         return None
-    m = r.config["model"]
-    flops = sum(n * counts.train_step_flops(
-        m["net_type"], m["num_input_bands"], m["num_classes"], w["batch"][s], s,
-        m.get("width_multiplier", 1.0)) for s, n in w["steps"].items())
+    flops = sum(n * counts.train_step_flops(r.net, w["batch"][s], s)
+                for s, n in w["steps"].items())
     return 100.0 * flops / peaks.FP32_FLOPS / w["seconds"]

@@ -6,7 +6,12 @@ the reference package's stated semantics, not from dynseg_torch:
 
   * a block is conv (dilated, SAME as XLA pads it: the odd pixel after,
     stride 1, no bias under BatchNorm) -> BatchNorm -> leaky-ReLU (0.1)
-    -> 3x3 stride-1 SAME max-pool; the head is a 1x1 conv with bias;
+    -> 3x3 stride-1 SAME max-pool where the block pools; the head is a 1x1
+    conv with bias;
+  * the wiring is the configuration's: sequential, each block reading the
+    one before it; or dense (SURVEY.md C7), each block reading the channel
+    concat of the input bands and of every earlier block's output, in that
+    order, and the head the concat of all block outputs, input excluded;
   * train-mode BatchNorm is Flax's: mean and max(0, E[x^2] - E[x]^2) over
     (N, H, W), y = (x - mean) * (rsqrt(var + 1e-5) * scale) + bias;
   * the max-pool's gradient splits a tie evenly among the maxima of a
@@ -14,7 +19,9 @@ the reference package's stated semantics, not from dynseg_torch:
   * int8 blocks: int8 codes x int8 per-output-channel weights summed
     exactly, y = A * acc + B with the dequantization and BatchNorm folded
     into A and B, leaky-ReLU, then requantized to the next block's scale
-    where that block is int8; pools run on the codes.
+    where that block is int8; pools run on the codes. Under dense wiring
+    there is no int8 stream: each int8 block quantizes its own float32
+    concat input at its act_scale, outputs float32 and pools in float.
 
 `tf32=True` rounds every float convolution's operands to TF32 (10
 mantissa bits, to nearest even) and accumulates in float32: the tensor
@@ -29,7 +36,7 @@ from typing import Dict, List, Optional
 import torch
 import torch.nn.functional as F
 
-from portbench.counts import ARCH
+from portbench.counts import Net
 
 EPS = 1e-5
 LEAKY = 0.1
@@ -135,32 +142,41 @@ def int8_conv(codes: torch.Tensor, wq: torch.Tensor, dilation: int) -> torch.Ten
     return torch.round(conv(codes.double(), wq.double(), dilation)).float()
 
 
-def forward(params: Dict[str, torch.Tensor], x: torch.Tensor, net: str,
+def concat(maps: List[torch.Tensor]) -> torch.Tensor:
+    """Dense wiring's channel concat, in the order given."""
+    return torch.cat(maps, 1)
+
+
+def forward(params: Dict[str, torch.Tensor], x: torch.Tensor, net: Net,
             train: bool = False, tf32: bool = False, tie_split: bool = False,
             quant: Optional[dict] = None, record: Optional[List[torch.Tensor]] = None,
             stats: Optional[list] = None) -> torch.Tensor:
-    """(B, H, W, C) float32 -> (B, H, W, classes) float32 logits.
+    """(B, H, W, C) float32 -> (B, H, W, classes) float32 logits of `net`
+    (`counts.net` of the configuration).
 
     train: Flax's train-mode BatchNorm (batch statistics, appended to
     `stats` as (mean, var) per block); else the running statistics.
     tie_split: the pools' gradient splits ties. quant: the int8 plan
-    (`segment.quantize`). record: each block's float input appended
-    (calibration)."""
-    dils = [d for _, _, d, _ in ARCH[net]]
+    (`segment.quantize`). record: each block's float input appended, then
+    the head's (calibration)."""
+    dense = net.wiring == "dense"
     h = x.permute(0, 3, 1, 2).contiguous()
-    q = quant["blocks"] if quant else [None] * len(dils)
+    feats = [h]
+    q = quant["blocks"] if quant else [None] * len(net.blocks)
     codes = None  # h holds int8 codes at this scale when set
-    for i, dil in enumerate(dils):
+    for i, b in enumerate(net.blocks):
+        if dense:
+            h = concat(feats)
         if record is not None:
             record.append(h)
-        nxt = q[i + 1] if i + 1 < len(dils) else None
+        nxt = q[i + 1] if not dense and i + 1 < len(q) else None
         if q[i] is not None:
             qi = q[i]
             c = h if codes is not None else quantize_codes(h, qi["act_scale"])
-            y = qi["a"][:, None, None] * int8_conv(c, qi["wq"], dil) \
+            y = qi["a"][:, None, None] * int8_conv(c, qi["wq"], b.dilation) \
                 + qi["b"][:, None, None]
         else:
-            y = conv(h, params[f"blocks.{i}.conv.weight"], dil, tf32)
+            y = conv(h, params[f"blocks.{i}.conv.weight"], b.dilation, tf32)
             if train:
                 y, mean, var = bn_train(y, params[f"blocks.{i}.bn.weight"],
                                         params[f"blocks.{i}.bn.bias"])
@@ -177,7 +193,13 @@ def forward(params: Dict[str, torch.Tensor], x: torch.Tensor, net: str,
             codes = nxt["act_scale"]
         else:
             codes = None
-        h = TieSplitPool.apply(y) if tie_split else pool(y)
+        if b.pool:
+            y = TieSplitPool.apply(y) if tie_split else pool(y)
+        h = y
+        if dense:
+            feats.append(h)
+    if dense:
+        h = concat(feats[1:])
     if record is not None:
         record.append(h)
     logits = conv(h, params["head.conv.weight"], 1, tf32, params["head.conv.bias"])

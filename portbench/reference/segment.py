@@ -18,9 +18,9 @@ context alone:
     the 99.9th percentile of |block input| over 8 crops of side
     min(128, h, w), drawn with numpy's default_rng(0) (tile i % T, row
     and column uniform in the valid area), the max over crops; a block
-    is int8 where both of its channel counts reach min_ch; weights are
-    per-output-channel symmetric (absmax / 127), activations per-tensor
-    (range / 127).
+    is int8 where both of its channel counts reach min_ch (under dense
+    wiring, its concat input's); weights are per-output-channel symmetric
+    (absmax / 127), activations per-tensor (range / 127).
 """
 
 from __future__ import annotations
@@ -30,7 +30,7 @@ from typing import Dict, List, Sequence
 import numpy as np
 import torch
 
-from portbench.counts import quantized, window_origins, window_stride
+from portbench.counts import Net, quantized, window_origins, window_stride
 from portbench.reference.net import EPS, forward, no_tf32, percentile
 
 
@@ -57,11 +57,11 @@ def calib_crops(images: Sequence[torch.Tensor], mean, std, n: int = 8) -> List[t
 
 
 @torch.no_grad()
-def quantize(params: Dict[str, torch.Tensor], net: str, bands: int,
-             crops: Sequence[torch.Tensor], pct: float, min_ch: int,
-             width: float = 1.0, tf32: bool = False) -> dict:
+def quantize(params: Dict[str, torch.Tensor], net: Net, crops: Sequence[torch.Tensor],
+             pct: float, min_ch: int, tf32: bool = False) -> dict:
     """The int8 plan: per block None (float) or its codes' scale, int8
-    weights and folded affine."""
+    weights and folded affine; the scale is that of the block's own input
+    (under dense wiring, its concat)."""
     no_tf32()
     ranges = None
     for c in crops:
@@ -70,7 +70,7 @@ def quantize(params: Dict[str, torch.Tensor], net: str, bands: int,
         vals = [percentile(t.abs(), pct) for t in rec]
         ranges = vals if ranges is None else [max(a, b) for a, b in zip(ranges, vals)]
     plan = []
-    for i, on in enumerate(quantized(net, bands, min_ch, width)):
+    for i, on in enumerate(quantized(net, min_ch)):
         if not on:
             plan.append(None)
             continue
@@ -90,7 +90,7 @@ def quantize(params: Dict[str, torch.Tensor], net: str, bands: int,
 
 
 @torch.no_grad()
-def dense_probs(params, image: torch.Tensor, mean, std, rect, net: str, halo: int,
+def dense_probs(params, image: torch.Tensor, mean, std, rect, net: Net, halo: int,
                 quant=None, tf32: bool = False) -> torch.Tensor:
     """(y1-y0, x1-x0, classes) softmax probabilities of rect (y0, y1, x0,
     x1) of the raw tile, from one forward with a halo."""
@@ -102,7 +102,7 @@ def dense_probs(params, image: torch.Tensor, mean, std, rect, net: str, halo: in
 
 
 @torch.no_grad()
-def window_probs(params, image: torch.Tensor, mean, std, rect, net: str,
+def window_probs(params, image: torch.Tensor, mean, std, rect, net: Net,
                  scales: Sequence[int], fraction: float, pad: int,
                  batch: int = 256, tf32: bool = False):
     """Vote sums (h', w', classes) and counts (h', w') over rect of the raw

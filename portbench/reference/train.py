@@ -21,6 +21,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from portbench.counts import Net
 from portbench.reference.net import IGNORE, forward, no_tf32
 
 
@@ -71,7 +72,7 @@ def masked_ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return ce / valid.sum().clamp(min=1)
 
 
-def train_steps(params0: Dict[str, torch.Tensor], batches: List, net: str,
+def train_steps(params0: Dict[str, torch.Tensor], batches: List, net: Net,
                 lr: float, momentum: float, weight_decay: float,
                 tf32: bool = False) -> dict:
     """Momentum SGD over `batches` [(images, labels)] from params0.

@@ -2,13 +2,14 @@
 
     python -m portbench.run --workload <cell> --seed <n> --seconds <s> --trace <0|1>
 
-The cell names a configuration (configs/<config>.json) and a traffic mix
-(mixes/<traffic>.json); the mix names its driver (drivers/<driver>.py),
-which sets the port up from the seed, warms every shape it will use,
-measures for --seconds and hands back what the timed path produced. With
---trace 1 the driver also runs a short profiled stretch after the window,
-and the per-layer metrics are read by their readers
-(metrics/<metric>.py). Then the driver's comparison with the plain
+The cell names a configuration (configs/<config>.json), whose `model`
+states the net (its blocks, wiring and multiply-adds a pixel, which must
+agree), and a traffic mix (mixes/<traffic>.json); the mix names its
+driver (drivers/<driver>.py), which sets the port up from the seed, warms
+every shape it will use, measures for --seconds and hands back what the
+timed path produced. With --trace 1 the driver also runs a short profiled
+stretch after the window, and the per-layer metrics are read by their
+readers (metrics/<metric>.py). Then the driver's comparison with the plain
 reference is judged against limits/<cell>.json.
 
 The last line of standard output is one JSON object: correct, attempted,
@@ -31,6 +32,8 @@ import sys  # noqa: E402
 import tempfile  # noqa: E402
 from pathlib import Path  # noqa: E402
 from typing import Dict, List, Optional  # noqa: E402
+
+from portbench import counts  # noqa: E402
 
 HERE = Path(__file__).resolve().parent
 # Top-level module names that may not be loaded in a run.
@@ -70,6 +73,9 @@ class Run:
         self.cell = cells[workload]
         conf = {c["name"]: c for c in self.bench["configs"]}[self.cell["config"]]
         self.config = load_json(root / conf["file"])
+        # The net as the configuration states it, checked against its own
+        # macs_per_px: every count, weight and reference forward follows it.
+        self.net = counts.checked_net(self.config["model"])
         self.pkg = root / "portbench"
         self.mix = load_json(self.pkg / "mixes" / f"{self.cell['traffic']}.json")
         self.limits = load_json(self.pkg / "limits" / f"{workload}.json")

@@ -21,7 +21,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from portbench.counts import blocks
+from portbench.counts import Net
 
 # Salts that keep the seed's streams apart.
 _TILES, _WEIGHTS, _SAMPLE = 0x7115, 0x3E16, 0x5A3B
@@ -83,11 +83,12 @@ def stats(images: Sequence[torch.Tensor]) -> Tuple[np.ndarray, np.ndarray]:
     return mean.float().cpu().numpy(), std.float().cpu().numpy()
 
 
-def make_weights(net: str, bands: int, classes: int, seed: int, device,
-                 width: float = 1.0) -> Dict[str, torch.Tensor]:
-    """float32 weights by the port's state_dict names, on `device`."""
-    bs = blocks(net, bands, width)
-    shapes = [(b.cout, b.cin, b.k, b.k) for b in bs] + [(classes, bs[-1].cout, 1, 1)]
+def make_weights(net: Net, seed: int, device) -> Dict[str, torch.Tensor]:
+    """float32 weights of `net` (`counts.net` of the configuration) by the
+    port's state_dict names, on `device`: the blocks' kernels in order,
+    then the head's, from one draw."""
+    bs = net.blocks
+    shapes = [(b.cout, b.cin, b.k, b.k) for b in bs] + [(net.classes, net.head_cin, 1, 1)]
     sizes = [int(np.prod(s)) for s in shapes]
     flat = torch.randn(sum(sizes), generator=generator(seed, _WEIGHTS, device),
                        device=device)
@@ -110,7 +111,7 @@ def make_weights(net: str, bands: int, classes: int, seed: int, device,
 
 
 @torch.no_grad()
-def bn_from_crops(weights: Dict[str, torch.Tensor], net: str, images, mean, std,
+def bn_from_crops(weights: Dict[str, torch.Tensor], net: Net, images, mean, std,
                   seed: int, n: int = 8, side: int = 128) -> None:
     """Set the running statistics to the batch statistics of one plain
     train-mode forward over n crops drawn from the seed."""
@@ -134,13 +135,13 @@ def bn_from_crops(weights: Dict[str, torch.Tensor], net: str, images, mean, std,
         weights[f"blocks.{i}.bn.running_var"] = var
 
 
-def flax_tree(weights: Dict[str, torch.Tensor], n_blocks: int) -> dict:
+def flax_tree(weights: Dict[str, torch.Tensor], net: Net) -> dict:
     """The Flax-shaped numpy tree `Trainer.init_state(variables=...)` takes."""
     def np_(t):
         return t.detach().cpu().numpy()
 
     params, stats_ = {}, {}
-    for i in range(n_blocks):
+    for i in range(len(net.blocks)):
         name = f"DilatedConvBlock_{i}"
         params[name] = {
             "Conv_0": {"kernel": np.ascontiguousarray(

@@ -55,9 +55,14 @@ def test_reference_runs_without_the_port():
 import torch
 from portbench import counts, synth
 from portbench.reference import net, segment, train
-w = synth.make_weights('dilated_grsl_rate8', 3, 6, 1, 'cpu', 0.125)
-y = net.forward(w, torch.zeros(1, 16, 16, 3), 'dilated_grsl_rate8', train=True)
-assert y.shape == (1, 16, 16, 6)
+import json
+for name in ('grsl_rate8-potsdam', 'icpr_rate6-vaihingen'):
+    model = json.load(open(f'portbench/configs/{name}.json'))['model']
+    for over in ({}, {'wiring': 'dense'}):
+        n = counts.net(dict(model, width_multiplier=0.125, **over))
+        w = synth.make_weights(n, 1, 'cpu')
+        y = net.forward(w, torch.zeros(1, 16, 16, 3), n, train=True)
+        assert y.shape == (1, 16, 16, 6)
 """)
     assert proc.returncode == 0, proc.stderr
 
