@@ -22,10 +22,11 @@ and launches in one call.
 
 The kernel has variants, chosen by `variant_for` from the shape alone:
 "wgmma" (the tensor cores, fed by TMA) where Cin and Cout are multiples of
-16 and the SAME pad is under 128, as in every serving block, and "dp4a"
-(the integer pipes) for any other shape, such as the dense-wired net's
-concat inputs of 131 channels; dp4a can be named for an aligned shape, to
-measure the tensor cores against it. `launches` counts the kernel's
+16 and the SAME pad is under 128, as in every serving block (the dense-wired
+net's concat inputs of 131-643 channels among them, which `ops.quant` pads
+with zero channels to a multiple of 16), and "dp4a" (the integer pipes) for
+any other shape; dp4a can be named for an aligned shape, to measure the
+tensor cores against it. `launches` counts the kernel's
 launches, `variant_launches` those of each variant and `out_launches`
 those of each output type (int8, float32, bfloat16), whether the eager
 forward or a loaded artifact called the op.

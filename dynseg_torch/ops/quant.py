@@ -23,6 +23,15 @@ prepares K5's operands once per model (packed weights, A, B and the
 requant's 1/out_scale on the host), and `make_apply`'s forward reuses them,
 so no launch folds, packs or reads a scale back from the device.
 
+Under the dense wiring there is no int8 stream: every block reads the
+channel concat of the input and of all earlier outputs. The forward keeps
+them in one feature buffer, each output written once into its slot after
+zero lead channels that round the input's slot up to 16 channels, and a
+quantized block quantizes the buffer's channels up to its slot: its
+concat input behind the zero lead, which meets zero rows of its packed
+weights. K5 then sees a Cin that is a multiple of 16 wherever the slots'
+widths are (the tensor cores), and sums the same int32s as on the concat.
+
 The activations run in ModelConfig.compute_dtype with the reference's
 rounding points: each block casts its float input to it, K5 stores the
 last int8 block's output in it, and the float blocks' BatchNorm runs in it
@@ -47,6 +56,11 @@ from dynseg_torch.ops.int8_conv import (PackedConv, int8_block_conv_packed,
                                        pack_conv)
 from dynseg_torch.ops.pool import max_pool_fwd, pool_forward
 from dynseg_torch.ops.pool import quantize_act as _quantize_act
+from dynseg_torch.utils.profiling import span
+
+# K5's tensor-core variant takes int8 channels in 16-byte pieces (TMA's
+# stride rule); the dense forward's lead channels round the input up to it.
+_CIN_ALIGN = 16
 
 
 def _dense_wired(mcfg: ModelConfig) -> bool:
@@ -71,6 +85,12 @@ def block_specs(mcfg: ModelConfig, num_input_bands: int) -> List[dict]:
         else:
             cin = cout
     return specs
+
+
+def dense_lead(bands: int) -> int:
+    """The zero channels before the input bands in the dense forward's
+    feature buffer: as many as round the bands' slot up to 16 channels."""
+    return -bands % _CIN_ALIGN
 
 
 def quant_plan(mcfg: ModelConfig, num_input_bands: int,
@@ -138,18 +158,22 @@ def pack_blocks(mcfg: ModelConfig, variables: Dict[str, torch.Tensor],
     """K5's prepared operands of every quantized block, by block name.
     With `stream` (the serving forward) a block of the sequential wiring
     requantizes to its out_scale; without it (calibration), and where the
-    next block runs in float, a block outputs the compute dtype."""
+    next block runs in float, a block outputs the compute dtype. Under the
+    dense wiring a block's weights gain zero rows for the feature buffer's
+    lead channels (`dense_lead`), before its concat input's."""
     specs = block_specs(mcfg, int(variables["blocks.0.conv.weight"].shape[1]))
+    dense = _dense_wired(mcfg)
+    lead = dense_lead(specs[0]["cin"]) if dense else 0
     packed = {}
     for i, spec in enumerate(specs):
         p = _block_params(variables, spec)
         if "w_scale" not in p:
             continue
         out_scale = (_out_scale(variables, specs, i)
-                     if stream and not _dense_wired(mcfg) else None)
+                     if stream and not dense else None)
         a, b = _fold(mcfg, p)
         packed[spec["name"]] = pack_conv(
-            p["conv.weight"].permute(2, 3, 1, 0), a, b,
+            F.pad(p["conv.weight"].permute(2, 3, 1, 0), (0, 0, lead, 0)), a, b,
             dilation=spec["dilation"], leaky_slope=mcfg.leaky_slope,
             out_scale=out_scale, out_dtype=compute_dtype(mcfg))
     return packed
@@ -207,6 +231,46 @@ def _block_params(variables: Dict[str, torch.Tensor], spec: dict) -> dict:
             if k.startswith(prefix)}
 
 
+def _dense_forward(mcfg: ModelConfig, variables: Dict[str, torch.Tensor],
+                   x: torch.Tensor, specs: List[dict], record: Optional[dict],
+                   calib_pct: float, packed: Dict[str, PackedConv]) -> torch.Tensor:
+    """The blocks of the dense wiring on one NHWC feature buffer in the
+    compute dtype: `dense_lead` zero channels, the input bands, then each
+    block's output in its slot, written once. A float block reads its
+    concat input from the bands to its slot; a quantized block quantizes
+    from channel 0, the zero lead included (codes 0). Returns the head's
+    input, the block slots, as NCHW channels_last. Every slot write and
+    every assembled input (a block's or the head's) is a `quant.assemble`
+    span."""
+    lead = dense_lead(x.shape[-1])
+    first = lead + x.shape[-1]  # the first block's slot
+    buf = x.new_empty((*x.shape[:3], lead + specs[-1]["cin"] + specs[-1]["cout"]),
+                      dtype=compute_dtype(mcfg))
+    fm = buf.permute(0, 3, 1, 2)  # the NCHW view, channels_last strides
+    with span("quant.assemble"):
+        buf[..., :lead].zero_()
+        buf[..., lead:first].copy_(x)
+    for spec in specs:
+        slot = lead + spec["cin"]
+        p = _block_params(variables, spec)
+        pc = packed.get(spec["name"])
+        with span("quant.assemble"):
+            if pc is None:
+                h = fm[:, lead:slot].contiguous(memory_format=torch.channels_last)
+            else:
+                h = _quantize_act(buf[..., :slot], p["act_scale"]).contiguous()
+                h = h.permute(0, 3, 1, 2)
+        if record is not None:
+            # Calibration probe: the concat input, without the lead.
+            record[spec["name"]] = _percentile(fm[:, lead:slot].abs(), calib_pct)
+        out, _ = _block_forward(mcfg, spec, p, h, None, calib_pct, pc,
+                                in_scale=None if pc is None else p["act_scale"])
+        with span("quant.assemble"):
+            fm[:, slot:slot + spec["cout"]].copy_(out)
+    with span("quant.assemble"):
+        return fm[:, first:].contiguous(memory_format=torch.channels_last)
+
+
 def _forward(mcfg: ModelConfig, variables: Dict[str, torch.Tensor],
              x: torch.Tensor, record: Optional[dict] = None,
              calib_pct: float = 99.9,
@@ -220,17 +284,8 @@ def _forward(mcfg: ModelConfig, variables: Dict[str, torch.Tensor],
     h = to_nchw(x.float())
     carried = None  # h is int8 at this scale when set
     if _dense_wired(mcfg):
-        # Dense wiring mixes every earlier map into each input, so there
-        # is no single int8 stream: each quantized block quantizes its
-        # own concat input.
-        feats = [h.to(dtype)]
-        for spec in specs:
-            out, _ = _block_forward(
-                mcfg, spec, _block_params(variables, spec),
-                torch.cat(feats, dim=1), record, calib_pct,
-                packed.get(spec["name"]))
-            feats.append(out)
-        h = torch.cat(feats[1:], dim=1)
+        h = _dense_forward(mcfg, variables, x.float(), specs, record,
+                           calib_pct, packed)
     else:
         for i, spec in enumerate(specs):
             # Stream int8 only outside calibration (the probe must see

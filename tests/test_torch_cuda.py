@@ -126,6 +126,68 @@ def test_kernel_refuses_strided_input(cuda):
         int8_conv.int8_block_conv(x, w, a, a, dilation=2, leaky_slope=0.1)
 
 
+# The dense-wired net's int8 blocks 2-5 at the serving batch of 8 x 336^2:
+# (concat Cin, Cout, k, dilation).
+DENSE_K5 = [(131, 128, 4, 3), (259, 128, 4, 4), (387, 256, 3, 5), (643, 256, 3, 6)]
+
+
+@pytest.mark.parametrize("geom", DENSE_K5, ids=lambda g: "x".join(map(str, g)))
+def test_wgmma_on_the_padded_prefix_equals_dp4a_on_the_concat(cuda, geom):
+    """K5 as the dense forward calls it: the tensor cores on the concat's
+    codes behind the zero lead codes, with zero weight rows there, against
+    dp4a on the concat alone, bit for bit (float32 out), one launch each."""
+    from dynseg_torch.ops.quant import dense_lead
+
+    cin, cout, k, dil = geom
+    lead = dense_lead(3)
+    (x, w, a, b), kw = _k5_case(cuda, (8, 336, 336, cin, cout, k, dil, False))
+    plain = int8_conv.pack_conv(w, a, b, **kw)
+    padded = int8_conv.pack_conv(torch.nn.functional.pad(w, (0, 0, lead, 0)), a, b, **kw)
+    assert (plain.variant, padded.variant) == ("dp4a", "wgmma")
+    xp = torch.nn.functional.pad(x, (lead, 0))
+    before = dict(int8_conv.variant_launches)
+    got = int8_conv.int8_block_conv_packed(xp, padded)
+    want = int8_conv.int8_block_conv_packed(x, plain)
+    torch.cuda.synchronize()
+    assert {v: int8_conv.variant_launches[v] - before[v] for v in before} == \
+        {"dp4a": 1, "wgmma": 1}
+    assert got.dtype == torch.float32 and torch.equal(got, want)
+
+
+def test_dense_int8_tile_equals_the_dp4a_path(cuda, monkeypatch):
+    """A dense int8 tile of the densely connected net at full width
+    (blocks 2-5 int8 at min_ch 128, blocks of 256 + halo 40, 8 a batch):
+    every K5 launch of the feature buffer's forward takes the tensor
+    cores, and its probabilities and labels equal those of the same
+    forward without the lead channels, where every int8 block runs dp4a
+    at its concat Cin."""
+    from dynseg_torch.bridge import flax_to_torch, init_variables_np
+    from dynseg_torch.config import Config, InferConfig, ModelConfig
+    from dynseg_torch.data.datasets import load_synthetic
+    from dynseg_torch.infer import Inferencer
+    from dynseg_torch.ops import quant
+
+    cfg = Config(model=ModelConfig(net_type="dilated_icpr_rate6_densely", num_classes=6),
+                 infer=InferConfig(mode="dense", quant="int8", dense_block=256,
+                                   dense_halo=40, save_prediction_maps=False))
+    tiles = load_synthetic(seed=0, num_tiles=1, size=600, num_classes=6)[1]
+    sd = flax_to_torch(init_variables_np(cfg.model, num_input_bands=3, seed=1))
+    inf = Inferencer(cfg, tiles, device=cuda)
+    qsd = inf.enable_quant({k: v.to(cuda) for k, v in sd.items()})
+    out = {}
+    for path in ("wgmma", "dp4a"):
+        if path == "dp4a":
+            monkeypatch.setattr(quant, "dense_lead", lambda bands: 0)
+        int8_conv.reset_launches()
+        # A new dict: the forward packs K5's operands anew.
+        out[path] = inf.predict_tile_dense(dict(qsd), 0, block=256, halo=40)
+        torch.cuda.synchronize()
+        assert int8_conv.launches > 0
+        assert int8_conv.variant_launches == {"dp4a": 0, "wgmma": 0, path: int8_conv.launches}
+    (lw, pw), (ld, pd) = out["wgmma"], out["dp4a"]
+    assert np.array_equal(pw, pd) and np.array_equal(lw, ld)
+
+
 def test_int8_window_path_on_card_matches_cpu(cuda):
     """Full-width int8 window voting on a small tile: the card (K5,
     cuDNN) and the CPU (plain versions) give the same labels."""

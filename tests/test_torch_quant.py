@@ -282,7 +282,8 @@ def test_bfloat16_mixed_forward_matches_reference_k5_route(exit_int8):
 def test_dense_wired_mixed_forward_matches_reference():
     """dilated_icpr_rate6_densely at full width: each quantized block
     (2-5, concat inputs of 131-643 channels) quantizes its own concat
-    input and outputs float32 from K5. The JAX side takes its K5 route
+    input, behind the zero lead channels that make its Cin a multiple of
+    16 (K5's tensor-core variant), and outputs float32 from K5. The JAX side takes its K5 route
     where the geometry allows and its XLA int8 route elsewhere (the
     ragged concat inputs), so a requantized code may round the other way:
     the bound is the int8 slice test's (labels on >= 99.5% of pixels)
@@ -299,7 +300,7 @@ def test_dense_wired_mixed_forward_matches_reference():
         f"blocks.{i}.w_scale" for i in (2, 3, 4, 5)]
     packed = quant.pack_blocks(_port(cfg), qsd)
     assert [pc.store_dtype for pc in packed.values()] == [torch.float32] * 4
-    assert [pc.variant for pc in packed.values()] == ["dp4a"] * 4
+    assert [pc.variant for pc in packed.values()] == ["wgmma"] * 4
     with torch.inference_mode():
         got = quant.make_apply(_port(cfg))(qsd, torch.from_numpy(x)).numpy()
     np.testing.assert_allclose(got, want, rtol=0, atol=2e-2 * np.abs(want).max())

@@ -261,6 +261,29 @@ def test_infer_spans_count_the_tiles_and_batches(tiles, monkeypatch, mode):
     assert got == want
 
 
+@pytest.mark.parametrize("net", ["dilated_icpr_rate6_densely", "dilated_icpr_rate6"])
+def test_quant_assemble_spans_count_the_dense_int8_forwards(net):
+    """The dense-wired int8 forward opens `quant.assemble` around each
+    slot write and each input it assembles (the input's slot, each
+    block's input and output, the head's input): 2 x (6 + 1) spans a
+    forward. The sequential int8 forward opens none."""
+    from dynseg_torch.ops import quant
+
+    mcfg = _model(net)
+    sd = flax_to_torch(init_variables_np(mcfg, num_input_bands=3, seed=0))
+    x = torch.from_numpy(np.random.default_rng(0).normal(size=(2, 13, 11, 3))
+                         .astype(np.float32))
+    qsd = quant.quantize_variables(mcfg, sd, quant.calibrate(mcfg, sd, [x[:1]]),
+                                   min_ch=16)
+    apply_fn = quant.make_apply(mcfg)
+    profiling.reset()
+    with torch.inference_mode():
+        for _ in range(3):
+            apply_fn(qsd, x)
+    got = profiling.totals().get("quant.assemble", {"calls": 0})["calls"]
+    assert got == (3 * 2 * 7 if net.endswith("densely") else 0)
+
+
 def test_metrics_endpoint_shows_the_serve_spans():
     """One dense request through a ServingEngine on a numpy predictor: the
     engine's queue, device call and copy are spans, listed in /metrics."""
