@@ -21,6 +21,13 @@ runs without them.
      f32, 128 f32 -> int8 with the quantize fused, 128 and 192 int8, 192
      f32), each with its device time, share of the byte bound, the plain
      composition's time and ATen's float32 max_pool2d at the same shape;
+  2c. K7 (quantize_s8) kernel vs plain, bitwise, on the four channel
+     prefixes (144 / 272 / 400 / 656) of a dense batch's feature buffer of
+     dilated_icpr_rate6_densely (8 x 336^2 x 912, float32 and bfloat16),
+     read in place, each with its device time, share of the byte bound and
+     the plain composition's time; then one int8 forward of that net at
+     full width on the batch: K7 launched 4 times, all on the 16-byte
+     path, and the logits equal to the plain composition's;
   3. the serving path: a small tile through `validate_test` on the card
      and on the CPU (plain versions): the same answer; then the three
      timed runs (window float and window int8 on a 1024^2 tile, 5 scales
@@ -311,6 +318,8 @@ POOL_SOURCE = "dynseg_torch/csrc/pool_bwd.cu"
 POOL_REPLACES = "dynseg/ops/pool.py:76"
 K6_SOURCE = "dynseg_torch/csrc/max_pool_fwd.cu"
 K6_REPLACES = "none in Pallas: lax.reduce_window on int8, dynseg/ops/quant.py:192-220"
+K7_SOURCE = "dynseg_torch/csrc/act_quantize.cu"
+K7_REPLACES = "none in Pallas: jnp.round(jnp.clip(x / sx, -127, 127)), dynseg/ops/quant.py:103"
 P1_SOURCE = "dynseg_torch/csrc/int8_conv3x3.cu"
 P1_REPLACES = "scripts/int8_kernel_probe.py:112"
 DEVICE = "cuda"
@@ -351,6 +360,9 @@ POOL_CHANNELS = (64, 64, 128, 128, 256, 256)
 # K6's six pools in a dense int8 forward of dilated_grsl_rate8 (quant_min_ch
 # 128, no int8 exit): (channels, mode) of blocks 0-5.
 K6_POOLS = ((64, "f32"), (64, "f32"), (128, "f32_i8"), (128, "i8"), (192, "i8"), (192, "f32"))
+# K7's shapes: the int8 blocks' concat prefixes of dilated_icpr_rate6_densely's
+# feature buffer (13 zero lead channels, 3 bands, six slots: 912 channels).
+K7_PREFIXES, K7_BUFFER = (144, 272, 400, 656), 912
 # The command line: iterations of the first training run and of the resume.
 CLI_NITER, CLI_RESUME_NITER, CLI_EVERY = 40, 60, 20
 # Phase 14's window-mode tile, and phase 16's short pallas run.
@@ -954,6 +966,89 @@ def check_max_pool_fwd_kernel(pool) -> dict:
     torch.cuda.empty_cache()
     return {"max_abs_err": 0.0, "ms": total["ms"], "plain_ms": total["plain_ms"],
             "library_ms": total["library_ms"], **bound_totals(bounds)}
+
+
+def check_quantize_kernel(pool) -> dict:
+    """Phase 2c: K7 kernel vs plain, bitwise, on the densely net's four
+    concat prefixes of a dense batch's feature buffer (read in place), in
+    float32 (the cell's) and bfloat16, each timed (device time, CUDA-graph
+    replay) beside its byte bound and the plain composition (what the
+    dense forward ran before K7); then K7's launches in one int8 forward
+    of the net, against the same forward on the plain composition."""
+    from dynseg_torch.ops import quant
+
+    dev = torch.device(DEVICE)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).removeprefix("torch.")
+        shape = (DENSE_BATCH, DENSE_EXT, DENSE_EXT, K7_BUFFER)
+        gen = torch.Generator(dev).manual_seed(len(name))
+        sx = torch.tensor(0.0371, device=dev)
+        buf = (torch.round(torch.randn(shape, device=dev, generator=gen) * 1024) / 128
+               * sx).to(dtype)
+        buf[..., :13] = 0
+        fm = buf.permute(0, 3, 1, 2)
+        total, bounds = collections.Counter(), collections.Counter()
+        for c in K7_PREFIXES:
+            before = dict(pool.quantize_launches)
+            got = pool.quantize_s8(fm[:, :c], sx).permute(0, 2, 3, 1)
+            want = pool.quantize_act(buf[..., :c], sx)
+            torch.cuda.synchronize()
+            if (not torch.equal(got, want)
+                    or pool.quantize_launches["vec16"] != before["vec16"] + 1):
+                raise SystemExit(f"K7 {shape[:3]} C {c} {name}: kernel disagrees with "
+                                 f"plain, or left the 16-byte path")
+            ms = graph_ms(lambda: pool.quantize_s8(fm[:, :c], sx))
+            plain = graph_ms(lambda: pool.quantize_act(buf[..., :c], sx))
+            # Each input value read once and each code written once.
+            nbytes = got.numel() * (buf.element_size() + 1)
+            bound, bound_by = bound_ms(got.numel(), nbytes, F32_PEAK)
+            log(f"K7 quantize_s8 {shape[:3]} C {c} of {K7_BUFFER} {name}: == plain bitwise; "
+                f"{ms:.4f} ms (device), {nbytes / ms / 1e6:.0f} GB/s, bound {bound:.4f} ms "
+                f"({bound_by}), {bound / ms:.3f} of the bound; plain {plain:.4f} ms")
+            total.update(ms=ms, plain_ms=plain)
+            bounds[bound_by] += bound
+            del got, want
+        log(f"K7 over the four prefixes ({name}): {total['ms']:.4f} ms against a bound of "
+            f"{sum(bounds.values()):.4f} ms ({sum(bounds.values()) / total['ms']:.3f}); "
+            f"plain {total['plain_ms']:.4f} ms")
+        if dtype == torch.float32:
+            out = {"max_abs_err": 0.0, "ms": total["ms"], "plain_ms": total["plain_ms"],
+                   **bound_totals(bounds)}
+        else:
+            out.update(bf16_ms=total["ms"], bf16_plain_ms=total["plain_ms"])
+        del buf, fm
+    torch.cuda.empty_cache()
+
+    from dynseg_torch.config import ModelConfig
+
+    mcfg = ModelConfig(net_type="dilated_icpr_rate6_densely", num_classes=6)
+    weights = {k: v.to(dev) for k, v in seeded_weights(mcfg, 3).items()}
+    x = torch.randn((DENSE_BATCH, DENSE_EXT, DENSE_EXT, 3), device=dev,
+                    generator=torch.Generator(dev).manual_seed(7))
+    qsd = quant.quantize_variables(mcfg, weights, quant.calibrate(mcfg, weights, [x[:1]]))
+    apply_fn = quant.make_apply(mcfg)
+    with torch.inference_mode():
+        apply_fn(qsd, x)
+        pool.reset_launches()
+        got = apply_fn(qsd, x)
+        out["launches"] = dict(pool.quantize_launches)
+        kernel = quant.quantize_s8
+        quant.quantize_s8 = pool.quantize_act
+        try:
+            want = apply_fn(qsd, x)
+        finally:
+            quant.quantize_s8 = kernel
+    torch.cuda.synchronize()
+    same = torch.equal(got, want)
+    log(f"K7 launches in one densely int8 forward of {tuple(x.shape)}: "
+        f"{out['launches']}; logits == plain composition's bitwise: {same}")
+    if out["launches"] != {"vec16": 4, "scalar": 0} or not same:
+        raise SystemExit("K7: the densely int8 forward left the kernel's 16-byte path "
+                         "or disagrees with the plain composition")
+    del weights, qsd, x, got, want
+    torch.cuda.empty_cache()
+    return out
 
 
 def train_config(pool_backward: str, niter: int, ema: bool, width: float = 1.0,
@@ -2918,6 +3013,7 @@ def main() -> int:
     # The serving path (K5, K6).
     k5 = check_kernel_geometries(int8_conv)
     k6 = check_max_pool_fwd_kernel(pool)
+    k7 = check_quantize_kernel(pool)
     weights = {k: v.to(DEVICE) for k, v in
                seeded_weights(config("window", "none").model, 3).items()}
     check_against_cpu(weights)
@@ -2972,7 +3068,7 @@ def main() -> int:
         # library_ms: no single PyTorch call computes K5, K2, K4 or P1 (no
         # CUDA int8 conv; ATen's max-pool backward routes a tie to the first
         # max; the gather fuses crop, normalise and labels); K6's is ATen's
-        # float32 max_pool2d at its shapes.
+        # float32 max_pool2d at its shapes. K7 adds its bfloat16 times.
         # K5 adds its bf16 store's time, bound and launches (phases 12-13)
         # and its launches in the HTTP server over phase 17's requests; K5,
         # K2 and K4 each rank's launches in phase 18; K2 its launches in
@@ -2980,7 +3076,7 @@ def main() -> int:
         extra = {key: k[key] for key in ("bf16_out_ms", "bf16_out_bound_ms",
                                          "bf16_out_launches", "serve_launches",
                                          "dp_rank_launches", "stress_launches",
-                                         "study_launches")
+                                         "study_launches", "bf16_ms", "bf16_plain_ms")
                  if key in k}
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": k["launches"],
@@ -2993,6 +3089,7 @@ def main() -> int:
         entry("patch_gather", GATHER_SOURCE, GATHER_REPLACES, k2),
         entry("pool_bwd", POOL_SOURCE, POOL_REPLACES, k4),
         entry("max_pool_s1_fwd", K6_SOURCE, K6_REPLACES, k6),
+        entry("quantize_s8_fwd", K7_SOURCE, K7_REPLACES, k7),
         entry("int8_conv3x3.wgmma", P1_SOURCE, P1_REPLACES, p1)]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -14,10 +14,12 @@ height, width), each saved with `torch.export.save`:
 
 A float artifact needs only torch to run. An int8 artifact calls K5 as
 the registered operator `dynseg_torch::int8_block_conv` (one call per
-quantized block) and K6 as `dynseg_torch::max_pool_s1` (one call per
-pool), so it needs `dynseg_torch` importable and, on the card, the kernel
-library it builds; its manifest lists the ops under "custom_ops" and
-`ExportedPredictor.load` registers them first. An int8 artifact written
+quantized block), K6 as `dynseg_torch::max_pool_s1` (one call per pool)
+and, where a block quantizes a float map, K7 as
+`dynseg_torch::quantize_s8`, so it needs `dynseg_torch` importable and,
+on the card, the kernel library it builds; its manifest lists the ops its
+programs call under "custom_ops" and `ExportedPredictor.load` registers
+them first. An int8 artifact written
 before K6 lists K5 alone (its pools are ATen's) and loads as it is.
 
 Artifacts on disk (under <output_path>/export/):
@@ -47,7 +49,9 @@ MANIFEST = "manifest.json"
 # registers it.
 INT8_OP = "dynseg_torch::int8_block_conv"
 POOL_OP = "dynseg_torch::max_pool_s1"
-CUSTOM_OPS = {INT8_OP: "dynseg_torch.ops.int8_conv", POOL_OP: "dynseg_torch.ops.pool"}
+QUANT_OP = "dynseg_torch::quantize_s8"
+CUSTOM_OPS = {INT8_OP: "dynseg_torch.ops.int8_conv", POOL_OP: "dynseg_torch.ops.pool",
+              QUANT_OP: "dynseg_torch.ops.pool"}
 
 
 class _Entry(nn.Module):
@@ -193,7 +197,10 @@ def export_predictor(
         },
     }
     if quantized:
-        manifest["custom_ops"] = [INT8_OP, POOL_OP]
+        called = {str(n.target) for _, program in programs.values()
+                  for n in program.graph.nodes}
+        manifest["custom_ops"] = [op for op in CUSTOM_OPS
+                                  if any(op.replace("::", ".") + "." in t for t in called)]
     manifest.update(extra_meta or {})
     _write_manifest(out_dir, manifest)
     checked = [d for d in platforms if _torch_device_type(d)]

@@ -43,7 +43,7 @@ def _nvcc() -> str:
 
 
 def _bind(lib: ctypes.CDLL) -> None:
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
     fn = lib.dynseg_int8_block_conv
     # x, w_packed, a, b, out, B, H, W, Cin, Cout, k, dilation, pad_lo,
     # leaky, requant, inv_scale, variant, stream
@@ -61,6 +61,10 @@ def _bind(lib: ctypes.CDLL) -> None:
     fn = lib.dynseg_max_pool_s1
     # x, y, scale, B, H, W, C, window, mode, rows, stream
     fn.argtypes = [p, p, p, i, i, i, i, i, i, i, p]
+    fn.restype = ctypes.c_int
+    fn = lib.dynseg_quantize_s8
+    # x, y, scale, pixels, C, pixel_stride, bf16, path, stream
+    fn.argtypes = [p, p, p, ll, i, ll, i, i, p]
     fn.restype = ctypes.c_int
     fn = lib.dynseg_int8_conv3x3
     # x, w_packed, out, B, H, W, C, dilation, scale, variant, stream

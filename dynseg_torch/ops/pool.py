@@ -38,6 +38,14 @@ pools float32. On the CPU the op runs `max_pool_fwd_ref`, the plain
 composition; on the card it launches the kernel. `fwd_launches` counts
 its launches by mode. `pool_forward` and `max_pool_s1`, the pools of the
 train-capable nets, do not use it.
+
+K7 (csrc/act_quantize.cu) is the int8 forward's quantize of a float map,
+`quantize_act` in one pass, through the registered operator
+`dynseg_torch::quantize_s8`: float32 or bfloat16 in, by the input's
+dtype, int8 codes out. It reads a channel prefix of a wider NHWC buffer in
+place. On the CPU the op runs `quantize_act`; on the card it launches the
+kernel on the path `quantize_path` picks, and `quantize_launches` counts
+its launches by path.
 """
 
 from __future__ import annotations
@@ -69,10 +77,15 @@ fwd_launches = dict.fromkeys(FWD_MODES, 0)
 _FWD_ROWS = 16
 
 
+# K7's paths (the C entry's path codes) and its launches by path.
+QUANT_PATHS = ("vec16", "scalar")
+quantize_launches = dict.fromkeys(QUANT_PATHS, 0)
+
+
 def reset_launches() -> None:
     global launches
     launches = 0
-    for counts in (variant_launches, fwd_launches):
+    for counts in (variant_launches, fwd_launches, quantize_launches):
         for v in counts:
             counts[v] = 0
 
@@ -351,3 +364,71 @@ def max_pool_fwd(x: torch.Tensor, window: int,
     channels_last format: int8 for "i8" and "f32_i8", else float32. CPU
     tensors take the plain version; CUDA tensors launch the kernel."""
     return _fwd_op(_nhwc(x), window, scale).permute(0, 3, 1, 2)
+
+
+def _check_quantize(x: torch.Tensor) -> None:
+    if x.dim() != 4 or x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"quantize_s8: a (B, H, W, C) float32 or bfloat16 map "
+                        f"required, got {tuple(x.shape)} {x.dtype}")
+
+
+def quantize_path(c: int, elem_size: int, x_ptr: int, pixel_stride: int) -> str:
+    """K7's path for pixels of `c` channels of `elem_size` bytes at x_ptr,
+    `pixel_stride` elements apart: "vec16" where every pixel is whole
+    16-channel pieces on 16-byte boundaries, else "scalar"."""
+    aligned = x_ptr % 16 == 0 and pixel_stride * elem_size % 16 == 0
+    return "vec16" if c % 16 == 0 and aligned else "scalar"
+
+
+# K7 as a registered operator, like K6: the int8 serving artifact calls it
+# as one node. On the CPU the op runs the plain version.
+@torch.library.custom_op("dynseg_torch::quantize_s8", mutates_args=(),
+                         device_types="cpu")
+def _quantize_op(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    _check_quantize(x)
+    return quantize_act(x, scale).contiguous()
+
+
+@_quantize_op.register_fake
+def _(x, scale):
+    _check_quantize(x)
+    return x.new_empty(x.shape, dtype=torch.int8)
+
+
+@_quantize_op.register_kernel("cuda")
+def _quantize_launch(x, scale):
+    """The op on the card: one launch of csrc/act_quantize.cu, counted. A
+    launch that fails raises; nothing falls back to the plain version."""
+    _check_quantize(x)
+    if scale.device != x.device or scale.dtype != torch.float32 or scale.numel() != 1:
+        raise ValueError(f"quantize_s8: the scale must be one float32 on {x.device}, "
+                         f"got {tuple(scale.shape)} {scale.dtype} on {scale.device}")
+    c = x.shape[3]
+    y = torch.empty(x.shape, device=x.device, dtype=torch.int8)
+    if y.numel() == 0:
+        return y
+    # The pixels at one stride, each pixel's channels contiguous: a view of
+    # a channel prefix of an NHWC buffer, a copy of any other layout.
+    px = x.reshape(-1, c)
+    if c > 1 and px.stride(1) != 1:
+        px = px.contiguous()
+    path = quantize_path(c, px.element_size(), px.data_ptr(), px.stride(0))
+    from dynseg_torch.ops._build import load_library
+
+    err = load_library().dynseg_quantize_s8(
+        px.data_ptr(), y.data_ptr(), scale.data_ptr(), px.shape[0], c, px.stride(0),
+        int(px.dtype == torch.bfloat16), QUANT_PATHS.index(path),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"quantize_s8 launch failed: CUDA error {err}")
+    quantize_launches[path] += 1
+    return y
+
+
+def quantize_s8(x: torch.Tensor, sx: torch.Tensor) -> torch.Tensor:
+    """K7: `quantize_act` of an NCHW float32 or bfloat16 map at the scale
+    sx (one float32), through the registered op. A channels_last map, or a
+    channel prefix of one, is read in place. Returns NCHW int8 codes in the
+    channels_last format. CPU tensors take the plain version; CUDA tensors
+    launch the kernel."""
+    return _quantize_op(x.permute(0, 2, 3, 1), sx).permute(0, 3, 1, 2)

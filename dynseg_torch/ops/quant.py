@@ -13,7 +13,10 @@ pass that writes only the max in the output's own type: int8 codes pool
 as int8, and the float block whose output streams int8 pools in float32
 and quantizes the max once (equal to quantizing first, since the quantize
 is monotone). Under compute_dtype bfloat16 the float pools stay on ATen
-(`pool_forward`), and such a block quantizes first.
+(`pool_forward`), and such a block quantizes first. Every other quantize
+of a float map goes through K7 (`ops.pool.quantize_s8`), one pass that
+reads the map, in place where it is a channel prefix of the dense
+forward's feature buffer, and writes the int8 codes.
 
 Every quantized block's conv goes through K5 (`ops.int8_conv`) with the
 dequant and BN folded into y = A*acc + B. That is the port's only int8
@@ -54,8 +57,7 @@ from dynseg_torch.config import ModelConfig
 from dynseg_torch.models.dilated import arch, compute_dtype, to_nchw
 from dynseg_torch.ops.int8_conv import (PackedConv, int8_block_conv_packed,
                                        pack_conv)
-from dynseg_torch.ops.pool import max_pool_fwd, pool_forward
-from dynseg_torch.ops.pool import quantize_act as _quantize_act
+from dynseg_torch.ops.pool import max_pool_fwd, pool_forward, quantize_s8
 from dynseg_torch.utils.profiling import span
 
 # K5's tensor-core variant takes int8 channels in 16-byte pieces (TMA's
@@ -126,7 +128,7 @@ def _pool(y: torch.Tensor, window: int, out_scale=None) -> torch.Tensor:
     if y.dtype == torch.bfloat16:
         if out_scale is None:
             return pool_forward(y, window)
-        y, out_scale = _quantize_act(y, out_scale), None
+        y, out_scale = quantize_s8(y, out_scale), None
     return max_pool_fwd(y, window, out_scale)
 
 
@@ -198,7 +200,7 @@ def _block_forward(mcfg: ModelConfig, spec: dict, p: Dict[str, torch.Tensor],
         record[spec["name"]] = _percentile(x.abs(), calib_pct)
     window = mcfg.pool_window if spec["pool"] else 0
     if pc is not None:
-        xq = x if in_scale is not None else _quantize_act(x, p["act_scale"])
+        xq = x if in_scale is not None else quantize_s8(x, p["act_scale"])
         y = int8_block_conv_packed(xq.permute(0, 2, 3, 1), pc).permute(0, 3, 1, 2)
         return (_pool(y, window) if window else y), out_scale
     if in_scale is not None:
@@ -222,7 +224,7 @@ def _block_forward(mcfg: ModelConfig, spec: dict, p: Dict[str, torch.Tensor],
     y = F.leaky_relu(y, mcfg.leaky_slope)
     if window:
         return _pool(y, window, out_scale), out_scale
-    return (y if out_scale is None else _quantize_act(y, out_scale)), out_scale
+    return (y if out_scale is None else quantize_s8(y, out_scale)), out_scale
 
 
 def _block_params(variables: Dict[str, torch.Tensor], spec: dict) -> dict:
@@ -258,8 +260,7 @@ def _dense_forward(mcfg: ModelConfig, variables: Dict[str, torch.Tensor],
             if pc is None:
                 h = fm[:, lead:slot].contiguous(memory_format=torch.channels_last)
             else:
-                h = _quantize_act(buf[..., :slot], p["act_scale"]).contiguous()
-                h = h.permute(0, 3, 1, 2)
+                h = quantize_s8(fm[:, :slot], p["act_scale"])
         if record is not None:
             # Calibration probe: the concat input, without the lead.
             record[spec["name"]] = _percentile(fm[:, lead:slot].abs(), calib_pct)

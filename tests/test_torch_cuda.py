@@ -1,6 +1,7 @@
 """dynseg_torch's CUDA kernels on the card: K5 (csrc/int8_block_conv.cu),
 K2 (csrc/patch_gather.cu), K4 (csrc/pool_bwd.cu), K6
-(csrc/max_pool_fwd.cu) and P1 (csrc/int8_conv3x3.cu) against their plain
+(csrc/max_pool_fwd.cu), K7 (csrc/act_quantize.cu) and P1
+(csrc/int8_conv3x3.cu) against their plain
 PyTorch versions, and the int8 serving path and a train step on the card
 against the same on the CPU. Marked `gpu`; every test skips where
 torch.cuda.is_available() is false. On a machine with a card and without
@@ -506,6 +507,97 @@ def test_max_pool_fwd_launches_per_int8_forward(cuda):
         pool.reset_launches()
         quant.make_apply(mcfg)(qsd, x)
     assert pool.fwd_launches == {"i8": 3, "f32_i8": 0, "f32": 0}
+
+
+# K7 on the dense-wired net's feature buffer: 13 zero lead channels, the
+# bands and the block slots, 912 channels; each int8 block's prefix.
+DENSE_PREFIXES = (144, 272, 400, 656)
+
+
+def _k7_buffer(cuda, shape, dtype, lead=13, offset=0):
+    """An NHWC buffer of half-steps of sx (ties, values past +-127 sx)
+    behind `lead` zero channels, in `dtype`, starting `offset` elements
+    past its allocation, and sx on the card."""
+    gen = torch.Generator(cuda).manual_seed(sum(shape) + offset)
+    sx = torch.tensor(0.25 if dtype == torch.bfloat16 else 0.0371, device=cuda)
+    n = int(np.prod(shape))
+    half = torch.randint(-300, 301, (n + offset,), generator=gen, device=cuda).float()
+    buf = (half * 0.5 * sx).to(dtype)[offset:].view(shape)
+    buf[..., :lead] = 0
+    return buf, sx
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("c", DENSE_PREFIXES)
+def test_quantize_s8_kernel_matches_plain_bitwise_on_the_dense_prefixes(cuda, c, dtype):
+    """K7 on a channel prefix of the 912-channel feature buffer at 8 x
+    96^2, read in place: the codes equal the plain composition's bit for
+    bit, in one launch of the 16-byte path."""
+    buf, sx = _k7_buffer(cuda, (8, 96, 96, 912), dtype)
+    before = dict(pool.quantize_launches)
+    got = pool.quantize_s8(buf.permute(0, 3, 1, 2)[:, :c], sx).permute(0, 2, 3, 1)
+    assert pool.quantize_launches == {**before, "vec16": before["vec16"] + 1}
+    want = pool.quantize_act(buf[..., :c], sx)
+    torch.cuda.synchronize()
+    assert got.is_contiguous() and got.dtype == torch.int8 and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("case", [(48, 3, 0, 0), (48, 40, 5, 0), (160, 144, 13, 1),
+                                  (16, 16, 0, 1)], ids=lambda c: "x".join(map(str, c)))
+def test_quantize_s8_scalar_path_matches_plain_bitwise(cuda, case, dtype):
+    """(buffer C, C, lead, offset): ragged C and a base one element off
+    16 bytes take one value a thread and still equal the plain
+    composition bit for bit."""
+    buf_c, c, lead, offset = case
+    buf, sx = _k7_buffer(cuda, (3, 17, 29, buf_c), dtype, lead, offset)
+    before = dict(pool.quantize_launches)
+    got = pool.quantize_s8(buf.permute(0, 3, 1, 2)[:, :c], sx).permute(0, 2, 3, 1)
+    assert pool.quantize_launches == {**before, "scalar": before["scalar"] + 1}
+    want = pool.quantize_act(buf[..., :c], sx)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_quantize_s8_launches_per_densely_int8_forward(cuda, monkeypatch):
+    """One int8 forward of dilated_icpr_rate6_densely at full width
+    launches K7 four times (blocks 2-5), all on the 16-byte path, and its
+    logits equal those of the same forward with the plain composition."""
+    from dynseg_torch.bridge import flax_to_torch, init_variables_np
+    from dynseg_torch.config import ModelConfig
+    from dynseg_torch.ops import quant
+
+    mcfg = ModelConfig(net_type="dilated_icpr_rate6_densely", num_classes=6)
+    sd = {k: v.to(cuda) for k, v in
+          flax_to_torch(init_variables_np(mcfg, num_input_bands=3, seed=5)).items()}
+    x = torch.from_numpy(np.random.default_rng(6).normal(
+        size=(2, 48, 40, 3)).astype(np.float32)).to(cuda)
+    qsd = quant.quantize_variables(mcfg, sd, quant.calibrate(mcfg, sd, [x[:1]]))
+    apply_fn = quant.make_apply(mcfg)
+    with torch.inference_mode():
+        apply_fn(qsd, x)
+        pool.reset_launches()
+        got = apply_fn(qsd, x)
+        counts = dict(pool.quantize_launches)
+        monkeypatch.setattr(quant, "quantize_s8", pool.quantize_act)
+        want = apply_fn(qsd, x)
+    torch.cuda.synchronize()
+    assert counts == {"vec16": 4, "scalar": 0}
+    assert torch.equal(got, want)
+
+
+def test_quantize_s8_launches_in_a_rate8_int8_forward(cuda):
+    """A grsl_rate8 int8 forward launches K7 no time: its one float-to-int8
+    step is fused into K6 (f32_i8). Under bfloat16 block 2 quantizes its
+    map before the ATen pool: one launch, on the 16-byte path."""
+    from dynseg_torch.ops import quant
+
+    for dtype, want in (("float32", 0), ("bfloat16", 1)):
+        mcfg, qsd, x = _rate8_int8_state(cuda, dtype)
+        with torch.inference_mode():
+            pool.reset_launches()
+            quant.make_apply(mcfg)(qsd, x)
+        assert pool.quantize_launches == {"vec16": want, "scalar": 0}
 
 
 def test_train_step_on_card_matches_cpu(cuda):

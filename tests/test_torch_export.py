@@ -26,7 +26,7 @@ from dynseg.ops import quant as jax_quant
 from dynseg_torch import config as port_config
 from dynseg_torch.bridge import flax_to_torch, init_variables_np
 from dynseg_torch.export import ARTIFACT, ExportedPredictor, export_predictor
-from dynseg_torch.ops import quant
+from dynseg_torch.ops import pool, quant
 
 # Statistics that bring uniform raw pixels to about unit variance, as a
 # training set's do.
@@ -225,7 +225,7 @@ def _aten_pool(y, window, scale=None):
     """The int8 forward's pools before K6, on NCHW maps: quantize first,
     then int8 codes pooled in float32 by ATen and cast back."""
     if scale is not None:
-        y = quant._quantize_act(y, scale)
+        y = pool.quantize_act(y, scale)
     if y.dtype == torch.int8:
         return quant.pool_forward(y.float(), window).to(torch.int8)
     return quant.pool_forward(y, window)
@@ -404,3 +404,28 @@ def test_cli_export_from_checkpoint(tmp_path):
     m8 = ExportedPredictor.load(out, device="cpu").manifest
     assert m8["quant"] == "int8" and m8["compute_dtype"] == "float32"
     assert m8["quant_blocks"] and m8["platforms"] == ["cpu"]
+
+
+def test_dense_int8_artifact_calls_the_quantize_op(tmp_path):
+    """A dense-wired int8 artifact (width 0.125, blocks 2-5 int8 at
+    min_ch 16): its program calls K7's op once per int8 block, the
+    manifest lists it beside K5's and K6's, and the artifact gives the
+    live int8 forward's probabilities."""
+    cfg = _cfg("dilated_icpr_rate6_densely", classes=4)
+    mcfg = _as(port_config, cfg.model)
+    sd = flax_to_torch(_seeded(cfg, 4))
+    x = np.random.default_rng(5).uniform(0, 255, size=(1, 13, 11, 3)).astype(np.float32)
+    xn = torch.from_numpy((x - MEAN) / STD)
+    qsd = quant.quantize_variables(mcfg, sd, quant.calibrate(mcfg, sd, [xn]), min_ch=16)
+    export_predictor(_as(port_config, cfg), sd, MEAN, STD, str(tmp_path), platforms=(),
+                     quant_variables=qsd)
+    port = ExportedPredictor.load(str(tmp_path), device="cpu")
+    assert port.manifest["custom_ops"] == ["dynseg_torch::int8_block_conv",
+                                           "dynseg_torch::max_pool_s1",
+                                           "dynseg_torch::quantize_s8"]
+    program = torch.export.load(str(tmp_path / ARTIFACT))
+    targets = [str(getattr(n, "target", "")) for n in program.graph.nodes]
+    assert sum("quantize_s8" in t for t in targets) == 4
+    with torch.inference_mode():
+        want = torch.softmax(quant.make_apply(mcfg)(qsd, xn), -1).numpy()
+    np.testing.assert_allclose(port.probs(x), want, rtol=0, atol=1e-6)

@@ -333,3 +333,100 @@ def test_max_pool_fwd_refuses_other_types(dtype, scaled):
     x = torch.zeros((1, 4, 5, 6), dtype=dtype)
     with pytest.raises(TypeError, match="int8 codes, or float32"):
         pool.max_pool_fwd(x, 3, torch.tensor(0.1) if scaled else None)
+
+
+# K7, the quantize of a float map: (buffer channels, channels quantized,
+# zero lead channels). A 144-channel prefix of a 160-channel buffer behind
+# the dense forward's 13 zero lead channels, ragged C 3 and 40 (the whole
+# buffer and a prefix), and a 16-channel map.
+QUANT = [(160, 144, 13), (3, 3, 0), (40, 40, 0), (48, 40, 5), (16, 16, 0)]
+
+
+def _quant_buffer(buf_c, lead, dtype, seed):
+    """An NHWC buffer of half-steps of sx (ties, values past +-127 sx)
+    behind `lead` zero channels, in `dtype`, and sx. A power-of-two sx
+    keeps bfloat16's half-steps exact near 0."""
+    rng = np.random.default_rng(seed)
+    sx = torch.tensor(0.25 if dtype == torch.bfloat16 else 0.0371)
+    half = rng.integers(-300, 301, (2, 5, 7, buf_c)).astype(np.float32)
+    buf = (torch.from_numpy(half) * 0.5 * sx).to(dtype)
+    buf[..., :lead] = 0
+    return buf, sx
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("case", QUANT, ids=lambda c: "x".join(map(str, c)))
+def test_quantize_s8_plain_route_equals_quantize_act(case, dtype):
+    """The op on the CPU, through `quantize_s8` on the NCHW view of a
+    channel prefix, equals `quantize_act` of the same prefix bit for bit:
+    ties to even, values past +-127 sx clamped, the zero lead codes 0. It
+    returns NCHW views of NHWC-contiguous int8 codes and launches no
+    kernel."""
+    buf_c, c, lead = case
+    buf, sx = _quant_buffer(buf_c, lead, dtype, seed=sum(case))
+    ratio = buf[..., :c].float() / sx
+    assert bool((ratio % 1 == 0.5).any()) and bool(ratio.abs().max() > 127)
+    before = dict(pool.quantize_launches)
+    got = pool.quantize_s8(buf.permute(0, 3, 1, 2)[:, :c], sx)
+    want = pool.quantize_act(buf[..., :c], sx)
+    assert got.dtype == torch.int8 and got.shape == (2, c, 5, 7)
+    assert got.permute(0, 2, 3, 1).is_contiguous()
+    assert torch.equal(got.permute(0, 2, 3, 1), want)
+    assert not got[:, :lead].any()
+    assert pool.quantize_launches == before
+    steps = torch.tensor([0.5, 1.5, 2.5, -0.5, -1.5, 127.5, -127.5, 1e9, -1e9, 0.0])
+    codes = pool.quantize_s8((steps * 0.25).to(dtype).view(1, 10, 1, 1), torch.tensor(0.25))
+    assert codes.flatten().tolist() == [0, 2, 2, 0, -2, 127, -127, 127, -127, 0]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("prefix", [False, True], ids=["whole", "prefix"])
+def test_quantize_s8_op_schema_and_fake(dtype, prefix):
+    """The registered op's schema, fake (meta) and CPU implementations
+    agree (torch.library.opcheck), on a whole map and on a channel prefix
+    of a wider buffer; the fake gives the input's shape in int8."""
+    buf, sx = _quant_buffer(160, 13, dtype, seed=3)
+    x = buf[..., :144] if prefix else buf
+    op = torch.ops.dynseg_torch.quantize_s8.default
+    torch.library.opcheck(op, (x, sx), test_utils=("test_schema", "test_faketensor"))
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    with FakeTensorMode() as mode:
+        y = op(mode.from_tensor(x), mode.from_tensor(sx))
+    assert y.shape == x.shape and y.dtype == torch.int8 and y.is_contiguous()
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float64, torch.int8], ids=str)
+def test_quantize_s8_refuses_other_types(dtype):
+    with pytest.raises(TypeError, match="float32 or bfloat16 map"):
+        pool.quantize_s8(torch.zeros((1, 4, 5, 6), dtype=dtype), torch.tensor(0.1))
+
+
+# (C, element bytes, base offset in bytes, pixel stride in elements, path).
+PATHS = [(144, 4, 0, 912, "vec16"), (656, 4, 0, 912, "vec16"), (144, 2, 0, 912, "vec16"),
+         (16, 4, 0, 16, "vec16"), (3, 4, 0, 3, "scalar"), (40, 4, 0, 48, "scalar"),
+         (144, 4, 4, 912, "scalar"), (144, 4, 0, 913, "scalar"), (16, 2, 0, 20, "scalar")]
+
+
+@pytest.mark.parametrize("case", PATHS, ids=lambda c: "x".join(map(str, c)))
+def test_quantize_path_takes_vec16_on_whole_aligned_pieces(case):
+    c, elem, offset, stride, path = case
+    assert pool.quantize_path(c, elem, 1024 + offset, stride) == path
+
+
+@pytest.mark.parametrize("elem", [4, 2], ids=["float32", "bfloat16"])
+def test_dense_prefixes_take_the_vec16_path(elem):
+    """Every int8 block of dilated_icpr_rate6_densely at full width reads
+    a prefix of the feature buffer (the zero lead, the bands, the earlier
+    slots: 144 / 272 / 400 / 656 channels of 912) that K7 takes on its
+    16-byte path."""
+    from dynseg_torch.config import ModelConfig
+    from dynseg_torch.ops import quant
+
+    mcfg = ModelConfig(net_type="dilated_icpr_rate6_densely", num_classes=6)
+    specs = quant.block_specs(mcfg, 3)
+    lead = quant.dense_lead(3)
+    width = lead + specs[-1]["cin"] + specs[-1]["cout"]
+    slots = [lead + s["cin"] for s, q in zip(specs, quant.quant_plan(mcfg, 3)) if q]
+    assert (slots, width) == ([144, 272, 400, 656], 912)
+    assert {pool.quantize_path(c, elem, 0, width) for c in slots} == {"vec16"}

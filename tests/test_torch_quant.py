@@ -119,7 +119,7 @@ def _unprepared_forward(mcfg, qsd, x):
                                               in_scale=carried, out_scale=nxt)
             continue
         sx = carried if carried is not None else p["act_scale"]
-        xq = h if carried is not None else quant._quantize_act(h, sx)
+        xq = h if carried is not None else pool.quantize_act(h, sx)
         a = (sx * p["w_scale"]).float()
         g = torch.rsqrt(p["bn.running_var"].float() + 1e-5) * p["bn.weight"]
         b = p["bn.bias"] - p["bn.running_mean"] * g
@@ -305,3 +305,32 @@ def test_dense_wired_mixed_forward_matches_reference():
         got = quant.make_apply(_port(cfg))(qsd, torch.from_numpy(x)).numpy()
     np.testing.assert_allclose(got, want, rtol=0, atol=2e-2 * np.abs(want).max())
     assert np.mean(got.argmax(-1) == want.argmax(-1)) >= 0.995
+
+
+def test_dense_forward_through_the_quantize_op_equals_the_composition(monkeypatch):
+    """A small dense-wired net with blocks 2-5 int8 (width 0.125, min_ch
+    16): the forward that quantizes each concat prefix through K7's op, on
+    the feature buffer's channel prefix in place, gives the logits of the
+    forward that quantizes with the plain composition, bit for bit, and
+    calls the op once per int8 block."""
+    cfg = ModelConfig(net_type="dilated_icpr_rate6_densely", num_classes=4,
+                      num_input_bands=3, width_multiplier=0.125)
+    mcfg = _port(cfg)
+    sd = flax_to_torch(_seeded(cfg, seed=7))
+    x = torch.from_numpy(np.random.default_rng(8).normal(
+        size=(2, 13, 11, 3)).astype(np.float32))
+    ranges = quant.calibrate(mcfg, sd, [x[:1]])
+    qsd = quant.quantize_variables(mcfg, sd, ranges, min_ch=16)
+    assert sorted(k for k in qsd if k.endswith("w_scale")) == [
+        f"blocks.{i}.w_scale" for i in (2, 3, 4, 5)]
+    calls = []
+    op = quant.quantize_s8
+    monkeypatch.setattr(quant, "quantize_s8",
+                        lambda h, sx: calls.append(h.shape[1]) or op(h, sx))
+    with torch.inference_mode():
+        got = quant.make_apply(mcfg)(qsd, x)
+        monkeypatch.setattr(quant, "quantize_s8", pool.quantize_act)
+        want = quant.make_apply(mcfg)(qsd, x)
+    lead = quant.dense_lead(3)
+    assert calls == [lead + s["cin"] for s in quant.block_specs(mcfg, 3)[2:]]
+    assert torch.equal(got, want)
