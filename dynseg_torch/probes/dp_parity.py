@@ -23,7 +23,7 @@ With `collective_stats`, each all-reduce is timed alone (the device
 synchronised and the ranks met at a host barrier before it, the device
 synchronised after) and counted: the share of a step the collectives
 take. Used by tests/test_torch_parallel_train.py,
-tests/test_torch_parallel_infer.py and chip_smoke.py phase 18.
+tests/test_torch_parallel_infer.py and tests/test_torch_cuda.py.
 """
 
 from __future__ import annotations

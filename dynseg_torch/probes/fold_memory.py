@@ -1,15 +1,15 @@
 """How much device memory does the window estimator's fold hold at one
 large scale, and what does it cost in Mpx/s? Runs
 `Inferencer._window_device` once, window mode, float, at full width
-(dilated_icpr_rate6, random weights from a seed), on one synthetic tile
-of --size^2 pixels at one scale, and prints the windows, the reference's
-estimate of the scale's collected buffer (`nb·B·s²·nc·4` bytes),
-`fold_peak_bytes` (the largest tensor collected for a fold, where the
-package reports it), the device's peak memory, the wall time and Mpx/s,
-and a hash of the vote counts and of the labels (--out also saves the
-labels beside the JSON, as PATH.labels.npy).
+(dilated_icpr_rate6, the reference's initial weights for seed 0), on one
+synthetic tile of --size^2 pixels at one scale, and prints the windows,
+the reference's estimate of the scale's collected buffer (`nb·B·s²·nc·4`
+bytes), `fold_peak_bytes` (the largest tensor collected for a fold, where
+the package reports it), the device's peak memory, the wall time and
+Mpx/s, and a hash of the vote counts and of the labels (--out also saves
+the labels beside the JSON, as PATH.labels.npy).
 
-    python dynseg_torch/probes/fold_memory.py [--root DIR] [--size 2048]
+    python -m dynseg_torch.probes.fold_memory [--root DIR] [--size 2048]
         [--scale 25] [--stride_fraction 0.125] [--classes 6]
         [--window_batch 256] [--out PATH]
 
@@ -34,6 +34,8 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from dynseg_torch.probes import import_from
+
 
 def main(argv: Optional[List[str]] = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -50,17 +52,12 @@ def main(argv: Optional[List[str]] = None) -> int:
         print("fold_memory: no CUDA device", file=sys.stderr)
         return 1
     here = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-    root = os.path.abspath(args.root or here)
-    sys.path.insert(0, root)
+    pkg = import_from(args.root or here)
     from dynseg_torch import infer
-    from dynseg_torch.bridge import flax_to_torch, init_variables_np
+    from dynseg_torch.bridge import flax_to_torch, init_variables_like_reference
     from dynseg_torch.config import Config, InferConfig, ModelConfig
     from dynseg_torch.data.datasets import load_synthetic
 
-    pkg = os.path.dirname(os.path.dirname(os.path.abspath(infer.__file__)))
-    if not pkg.startswith(root):
-        raise SystemExit(f"--root {root}: dynseg_torch was imported from {pkg} "
-                         f"(run this file by its path, not with -m)")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip().splitlines()[0]
@@ -71,7 +68,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         infer=InferConfig(scales=(s,), mode="window", quant="none",
                           stride_fraction=args.stride_fraction, window_batch=B,
                           save_prediction_maps=False))
-    weights = flax_to_torch(init_variables_np(cfg.model, num_input_bands=3, seed=0))
+    weights = flax_to_torch(init_variables_like_reference(cfg.model, 3, seed=0))
     dev = torch.device("cuda")
     weights = {k: v.to(dev) for k, v in weights.items()}
     # Warm-up on a small tile: cuDNN's first calls at the window batch.

@@ -8,8 +8,7 @@ as the reference guarantees (tests/test_determinism.py).
   * `distances`: the largest difference between two such runs, part by
     part; 0 everywhere is a bitwise rerun.
 
-Used by tests/test_torch_determinism.py, tests/test_torch_cuda.py and
-chip_smoke.py phase 19.
+Used by tests/test_torch_determinism.py and tests/test_torch_cuda.py.
 """
 
 from __future__ import annotations

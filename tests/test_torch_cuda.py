@@ -1,11 +1,13 @@
-"""dynseg_torch's CUDA kernels on the card: K5 (csrc/int8_block_conv.cu),
-K2 (csrc/patch_gather.cu), K4 (csrc/pool_bwd.cu), K6
-(csrc/max_pool_fwd.cu), K7 (csrc/act_quantize.cu) and P1
-(csrc/int8_conv3x3.cu) against their plain
-PyTorch versions, and the int8 serving path and a train step on the card
-against the same on the CPU. Marked `gpu`; every test skips where
-torch.cuda.is_available() is false. On a machine with a card and without
-JAX (these tests import none), run
+"""dynseg_torch on the card: K5 (csrc/int8_block_conv.cu), K2
+(csrc/patch_gather.cu), K4 (csrc/pool_bwd.cu), K6 (csrc/max_pool_fwd.cu),
+K7 (csrc/act_quantize.cu) and P1 (csrc/int8_conv3x3.cu) against their
+plain PyTorch versions; the serving path and train steps on the card
+against the same on the CPU; data parallelism and reproducibility; the
+window fold under its memory cap, host streaming, the command line's
+kernel launches, an int8 artifact against the live forward, and the
+reference's initial weights against their pins. Marked `gpu`; every test
+skips where torch.cuda.is_available() is false. On a machine with a card
+and without JAX (these tests import none), run
 
     python -m pytest tests/test_torch_cuda.py -q --noconftest
 """
@@ -27,8 +29,9 @@ def cuda():
 
 
 # (B, H, W, Cin, Cout, k, dilation, requant, variant): the slice's three
-# block geometries at batch 1 and as a window batch of 256 x 25^2, then
-# ragged tiles: M not a multiple of 128 (with Cout 256 and 192), Cin 144 (a
+# block geometries at batch 1, as a window batch of 256 x 25^2 and as the
+# dense batch of the main path (8 blocks of 256 + 2 * 40 halo pixels a
+# side, 8 x 336^2), then ragged tiles: M not a multiple of 128 (with Cout 256 and 192), Cin 144 (a
 # partial K chunk), a 1 x 1 image, Cin 48 with k 5; then the dp4a variant:
 # Cout 68 and 4, Cin 131 (the dense-wired net's block 2), 24, 3, Cout 30, 5.
 SHAPES = [
@@ -38,6 +41,9 @@ SHAPES = [
     (256, 25, 25, 128, 128, 4, 4, True, "wgmma"),
     (256, 25, 25, 128, 256, 3, 5, True, "wgmma"),
     (256, 25, 25, 256, 256, 3, 6, False, "wgmma"),
+    (8, 336, 336, 128, 128, 4, 4, True, "wgmma"),
+    (8, 336, 336, 128, 256, 3, 5, True, "wgmma"),
+    (8, 336, 336, 256, 256, 3, 6, False, "wgmma"),
     (3, 25, 25, 128, 192, 3, 5, True, "wgmma"),
     (2, 7, 130, 256, 256, 3, 6, True, "wgmma"),
     (1, 21, 17, 144, 64, 4, 4, False, "wgmma"),
@@ -127,6 +133,47 @@ def test_kernel_refuses_strided_input(cuda):
         int8_conv.int8_block_conv(x, w, a, a, dilation=2, leaky_slope=0.1)
 
 
+# The serve path's K5 calls at its defaults: a dense call of 8 blocks of
+# 1024 + 2 * 40 halo pixels a side, whose output passes 2^31 elements at
+# Cout 256, and window batches of 64 and 128 at the largest scale, 65.
+SERVE_K5 = [(8, 1104), (64, 65), (128, 65)]
+# (block, Cin, Cout, k, dilation, store): the three int8 blocks with the
+# int8 store of the int8 exit's route, blocks 4 and 5 with float32 too.
+SERVE_BLOCKS = [("block3", 128, 128, 4, 4, torch.int8),
+                ("block4", 128, 256, 3, 5, torch.int8),
+                ("block4", 128, 256, 3, 5, torch.float32),
+                ("block5", 256, 256, 3, 6, torch.int8),
+                ("block5", 256, 256, 3, 6, torch.float32)]
+
+
+@pytest.mark.parametrize("block", SERVE_BLOCKS,
+                         ids=lambda g: f"{g[0]}-{str(g[-1]).removeprefix('torch.')}")
+@pytest.mark.parametrize("batch", SERVE_K5, ids=lambda s: "{}x{}".format(*s))
+def test_kernel_at_the_serve_paths_shapes_matches_plain_bitwise(cuda, batch, block):
+    """Each int8 block at the serve path's shapes, storing int8 (requant)
+    or float32: the wgmma variant bitwise equal to plain, which runs two
+    of the dense call's samples a call."""
+    (b, side), (_, cin, cout, k, dil, store) = batch, block
+    gen = torch.Generator(device=cuda).manual_seed(17)
+    x = torch.randint(-127, 128, (b, side, side, cin), generator=gen, device=cuda,
+                      dtype=torch.int8)
+    w = torch.randint(-127, 128, (k, k, cin, cout), generator=gen, device=cuda,
+                      dtype=torch.int8)
+    a = torch.full((cout,), 2e-6, device=cuda)
+    pc = int8_conv.pack_conv(w, a, torch.rand(cout, generator=gen, device=cuda) - 0.5,
+                             dilation=dil, leaky_slope=0.1,
+                             out_scale=3.0 / 127 if store == torch.int8 else None)
+    assert pc.variant == "wgmma"
+    got = int8_conv.int8_block_conv_packed(x, pc)
+    assert got.dtype == store
+    if side == 1104 and cout == 256:
+        assert got.numel() > 2 ** 31
+    step = 2 if side == 1104 else b
+    for i in range(0, b, step):
+        assert torch.equal(got[i:i + step],
+                           int8_conv.int8_block_conv_packed_ref(x[i:i + step], pc)), i
+
+
 # The dense-wired net's int8 blocks 2-5 at the serving batch of 8 x 336^2:
 # (concat Cin, Cout, k, dilation).
 DENSE_K5 = [(131, 128, 4, 3), (259, 128, 4, 4), (387, 256, 3, 5), (643, 256, 3, 6)]
@@ -189,26 +236,47 @@ def test_dense_int8_tile_equals_the_dp4a_path(cuda, monkeypatch):
     assert np.array_equal(pw, pd) and np.array_equal(lw, ld)
 
 
-def test_int8_window_path_on_card_matches_cpu(cuda):
-    """Full-width int8 window voting on a small tile: the card (K5,
-    cuDNN) and the CPU (plain versions) give the same labels."""
-    from dynseg_torch.config import Config, InferConfig, ModelConfig
-    from dynseg_torch.data.datasets import load_synthetic
+def _window_tile_on_card_and_cpu(cuda, cfg, size=40):
+    """Tile 0's window labels and probabilities on the card (K5, cuDNN)
+    and on the CPU (plain versions), from the same weights."""
     from dynseg_torch.bridge import flax_to_torch, init_variables_np
+    from dynseg_torch.data.datasets import load_synthetic
     from dynseg_torch.infer import Inferencer
 
-    cfg = Config(model=ModelConfig(num_classes=2),
-                 infer=InferConfig(scales=(25,), quant="int8"))
-    tiles = load_synthetic(seed=0, num_tiles=2, size=40)[1]
+    tiles = load_synthetic(seed=0, num_tiles=2, size=size)[1]
     sd = flax_to_torch(init_variables_np(cfg.model, num_input_bands=3, seed=0))
     out = {}
     for dev in (cuda, torch.device("cpu")):
         inf = Inferencer(cfg, tiles, device=dev)
         qsd = inf.enable_quant({k: v.to(dev) for k, v in sd.items()})
         out[dev.type] = inf.predict_tile(qsd, 0)
-    (pg, prob_g), (pc, prob_c) = out["cuda"], out["cpu"]
-    assert np.isfinite(prob_g).all()
+    assert np.isfinite(out["cuda"][1]).all()
+    return out["cuda"], out["cpu"]
+
+
+def test_int8_window_path_on_card_matches_cpu(cuda):
+    """Full-width int8 window voting on a small tile: the card (K5,
+    cuDNN) and the CPU (plain versions) give the same labels."""
+    from dynseg_torch.config import Config, InferConfig, ModelConfig
+
+    cfg = Config(model=ModelConfig(num_classes=2),
+                 infer=InferConfig(scales=(25,), quant="int8"))
+    (pg, prob_g), (pc, prob_c) = _window_tile_on_card_and_cpu(cuda, cfg)
     np.testing.assert_allclose(prob_g, prob_c, rtol=0, atol=2e-2)
+    assert np.mean(pg == pc) >= 0.995
+
+
+def test_float_window_path_on_card_matches_cpu(cuda):
+    """Float32 window voting of a width-0.25 net over scales 25 and 35 on
+    a 48^2 tile: the card and the CPU agree to float32 summation order
+    (probabilities within 1e-4, labels but for near-ties)."""
+    from dynseg_torch.config import Config, InferConfig, ModelConfig
+
+    cfg = Config(model=ModelConfig(num_classes=2, width_multiplier=0.25),
+                 infer=InferConfig(scales=(25, 35)))
+    (pg, prob_g), (pc, prob_c) = _window_tile_on_card_and_cpu(cuda, cfg, size=48)
+    assert prob_g.shape == (48, 48, 2)
+    np.testing.assert_allclose(prob_g, prob_c, rtol=0, atol=1e-4)
     assert np.mean(pg == pc) >= 0.995
 
 
@@ -529,11 +597,13 @@ def _k7_buffer(cuda, shape, dtype, lead=13, offset=0):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
 @pytest.mark.parametrize("c", DENSE_PREFIXES)
-def test_quantize_s8_kernel_matches_plain_bitwise_on_the_dense_prefixes(cuda, c, dtype):
+@pytest.mark.parametrize("side", [96, 336])
+def test_quantize_s8_kernel_matches_plain_bitwise_on_the_dense_prefixes(cuda, side, c, dtype):
     """K7 on a channel prefix of the 912-channel feature buffer at 8 x
-    96^2, read in place: the codes equal the plain composition's bit for
-    bit, in one launch of the 16-byte path."""
-    buf, sx = _k7_buffer(cuda, (8, 96, 96, 912), dtype)
+    96^2 and at the main path's dense batch, 8 x 336^2, read in place:
+    the codes equal the plain composition's bit for bit, in one launch of
+    the 16-byte path."""
+    buf, sx = _k7_buffer(cuda, (8, side, side, 912), dtype)
     before = dict(pool.quantize_launches)
     got = pool.quantize_s8(buf.permute(0, 3, 1, 2)[:, :c], sx).permute(0, 2, 3, 1)
     assert pool.quantize_launches == {**before, "vec16": before["vec16"] + 1}
@@ -600,17 +670,15 @@ def test_quantize_s8_launches_in_a_rate8_int8_forward(cuda):
         assert pool.quantize_launches == {"vec16": want, "scalar": 0}
 
 
-def test_train_step_on_card_matches_cpu(cuda):
-    """One step of a width-0.25 net at batch 8, 25 px, pool_backward
-    pallas, lr 0.01, from the same weights on the card (K2, K4, cuDNN
-    without TF32) and on the CPU (plain versions): loss within 1e-5
-    relative and params within 1e-6 absolute (an lr-scaled gradient whose
-    float32 sums run in another order; measured 3.4e-7)."""
+def _step_on_card_and_cpu(cuda, **model_kw):
+    """One step of a width-0.25 net at batch 8, 25 px, lr 0.01, from the
+    same weights on the card and on the CPU: {device type: (loss,
+    state_dict on the CPU)}."""
     from dynseg_torch.config import Config, ModelConfig, SchedulerConfig, TrainConfig
     from dynseg_torch.data.datasets import load_synthetic
     from dynseg_torch.train import Trainer
 
-    cfg = Config(model=ModelConfig(width_multiplier=0.25, pool_backward="pallas"),
+    cfg = Config(model=ModelConfig(width_multiplier=0.25, **model_kw),
                  sched=SchedulerConfig(values=(25,)),
                  train=TrainConfig(batch_size=8, learning_rate=0.01))
     tiles = load_synthetic(seed=0, num_tiles=2, size=64)[0]
@@ -622,10 +690,32 @@ def test_train_step_on_card_matches_cpu(cuda):
         m = tr._step_impl(st, pos[0], aug[0], 25)
         out[dev.type] = (float(m["loss"]),
                          {k: v.cpu() for k, v in st.model.state_dict().items()})
+    return out
+
+
+def test_train_step_on_card_matches_cpu(cuda):
+    """One step with pool_backward pallas on the card (K2, K4, cuDNN
+    without TF32) and on the CPU (plain versions): loss within 1e-5
+    relative and params within 1e-6 absolute (an lr-scaled gradient whose
+    float32 sums run in another order; measured 3.4e-7)."""
+    out = _step_on_card_and_cpu(cuda, pool_backward="pallas")
     np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-5)
     for k, v in out["cpu"][1].items():
         np.testing.assert_allclose(out["cuda"][1][k].numpy(), v.numpy(),
                                    rtol=0, atol=1e-6, err_msg=k)
+
+
+def test_bfloat16_train_step_on_card_matches_cpu(cuda):
+    """The same step under compute_dtype bfloat16 with pool_backward xla
+    (K4 takes float32 only): cuDNN's and the CPU's bfloat16 convs round
+    their sums apart, so loss within 1e-2 relative and params within 5e-3
+    (tests/test_torch_train.py's bfloat16 bounds)."""
+    out = _step_on_card_and_cpu(cuda, pool_backward="xla", compute_dtype="bfloat16")
+    assert np.isfinite(out["cuda"][0])
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-2)
+    for k, v in out["cpu"][1].items():
+        np.testing.assert_allclose(out["cuda"][1][k].double().numpy(), v.double().numpy(),
+                                   rtol=0, atol=5e-3, err_msg=k)
 
 
 def test_training_is_bitwise_reproducible_on_the_card(cuda):
@@ -651,7 +741,7 @@ def test_training_is_bitwise_reproducible_on_the_card(cuda):
 # P1's (B, H, W, C, dilation): the TPU probe's check shapes, then ragged
 # ones: odd H and W, B 3, C 32 and 160 (a half K chunk), dilations 1, 2,
 # 5, 6, a dilation wider than the image, and a 1 x 1 image; then C 512 (two
-# N tiles), dilation 20, and the probe's shape (chip_smoke.P1_SHAPES).
+# N tiles), dilation 20, and the probe's shape.
 P1 = [
     (2, 16, 16, 128, 2), (1, 32, 32, 128, 6), (3, 17, 23, 32, 1),
     (3, 21, 15, 160, 2), (3, 19, 13, 32, 5), (3, 25, 11, 160, 6),
@@ -739,7 +829,7 @@ def test_p1_kernel_refuses_strided_input(cuda):
 
 
 # --------------------------------------------------------------------- #
-# data parallelism on the card (chip_smoke.py phase 18, at small width)
+# data parallelism on the card, at small width
 # --------------------------------------------------------------------- #
 def _dp_train_cfg(n, shard=False):
     from dynseg_torch.config import Config, ModelConfig, SchedulerConfig, TrainConfig
@@ -765,9 +855,9 @@ def _dp_assert_steps(got, want, floor):
     """Every loss within 1e-5 relative; after the first step params within
     1e-6 and BN statistics within 1e-5; after the last, each within the
     larger of those and twice `floor`, `want`'s own float32 noise (its
-    reruns on the same batches with the rows in other orders, as
-    chip_smoke.py phase 18); K2/K4 launches equal the gathers and pool
-    backwards, every K4 launch fused."""
+    reruns on the same batches with the rows in other orders); K2/K4
+    launches equal the gathers and pool backwards, every K4 launch
+    fused."""
     first = {"losses": got["losses"][:1], "state": got["states"][0]}
     _, dp1, dbn1 = _dp_distance(first, {"losses": want["losses"][:1],
                                         "state": want["states"][0]})
@@ -856,3 +946,210 @@ def test_split_int8_inference_on_the_card_matches_one_device(cuda):
             np.testing.assert_allclose(p, q, rtol=0, atol=1e-5)
         assert res["forwards"] > 0
         assert res["k5"] == res["k5_wgmma"] == 3 * res["forwards"]
+
+
+# --------------------------------------------------------------------- #
+# the estimator, the command line, the int8 artifact and the initial
+# weights on the card
+# --------------------------------------------------------------------- #
+def _window_setup(cuda, size, **infer_kw):
+    """A width-0.25 window float config over scales 25 and 35, two test
+    tiles of size^2 and weights on the card."""
+    from dynseg_torch.bridge import flax_to_torch, init_variables_np
+    from dynseg_torch.config import Config, InferConfig, ModelConfig
+    from dynseg_torch.data.datasets import load_synthetic
+
+    cfg = Config(model=ModelConfig(num_classes=2, width_multiplier=0.25),
+                 infer=InferConfig(scales=(25, 35), save_prediction_maps=False, **infer_kw))
+    tiles = load_synthetic(seed=0, num_tiles=2, size=size)[1]
+    sd = flax_to_torch(init_variables_np(cfg.model, num_input_bands=3, seed=0))
+    return cfg, tiles, {k: v.to(cuda) for k, v in sd.items()}
+
+
+def _window_grid(cfg, tiles, h: int, w: int):
+    """{scale: windows} of the window grid over an h x w tile."""
+    from dynseg_torch.infer import window_origins
+
+    pad = max(max(cfg.infer.scales), cfg.infer.dense_halo)
+    hp, wp = tiles.images.shape[1] + 2 * pad, tiles.images.shape[2] + 2 * pad
+    out = {}
+    for s in cfg.infer.scales:
+        stride = min(s, max(1, int(round(s * cfg.infer.stride_fraction))))
+        out[s] = (len(window_origins(pad, pad + h, s, stride, hp - s))
+                  * len(window_origins(pad, pad + w, s, stride, wp - s)))
+    return out
+
+
+def test_capped_window_fold_on_the_card_equals_the_uncapped_run(cuda, monkeypatch):
+    """DYNSEG_FOLD_MEM_GB under every scale's collected probabilities and
+    over one window batch's: each scale folds in bands, the largest
+    collected tensor stays within the cap, the vote counts equal the
+    uncapped run's bitwise and the labels differ only at ties."""
+    from dynseg_torch.infer import Inferencer
+
+    cfg, tiles, sd = _window_setup(cuda, 192, window_batch=32)
+    grid = _window_grid(cfg, tiles, *(int(v) for v in tiles.valid_hw[0]))
+    px = {s: s * s * cfg.model.num_classes * 4 for s in grid}
+    batch = max(cfg.infer.window_batch * b for b in px.values())
+    whole = min(n * px[s] for s, n in grid.items())
+    cap = (batch + whole) / 2
+    assert batch < cap < whole
+    inf = Inferencer(cfg, tiles, device=cuda)
+    out = {}
+    for name, gb in (("uncapped", None), ("capped", cap / 1e9)):
+        if gb is None:
+            monkeypatch.delenv("DYNSEG_FOLD_MEM_GB", raising=False)
+        else:
+            monkeypatch.setenv("DYNSEG_FOLD_MEM_GB", str(gb))
+        out[name] = (*inf._window_device(sd, 0), inf.fold_peak_bytes)
+    (pred_u, sum_u, cnt_u, peak_u), (pred_c, _, cnt_c, peak_c) = out["uncapped"], out["capped"]
+    assert peak_c <= cap < peak_u
+    assert torch.equal(cnt_u, cnt_c)
+    top2 = torch.topk(sum_u / cnt_u[..., None], 2, dim=-1).values
+    differ = pred_u != pred_c
+    assert bool(((top2[..., 0] - top2[..., 1])[differ] < 1e-5).all())
+
+
+def test_streamed_tiles_on_the_card_equal_the_resident_run(cuda):
+    """hbm_budget_gb 0 keeps the test tiles on the host and uploads one a
+    prediction: validate_test's label maps equal those of the run whose
+    tiles stay on the card, bitwise."""
+    import dataclasses
+
+    from dynseg_torch.infer import Inferencer, validate_test
+
+    cfg, tiles, sd = _window_setup(cuda, 96)
+    maps = {}
+    for budget in (cfg.infer.hbm_budget_gb, 0.0):
+        c = dataclasses.replace(cfg, infer=dataclasses.replace(cfg.infer, hbm_budget_gb=budget))
+        held = Inferencer(c, tiles, device=cuda).images
+        assert isinstance(held, np.ndarray) == (budget == 0.0)
+        maps[budget] = validate_test(c, sd, tiles, cuda, log=lambda *_: None)["predictions"]
+    (resident, streamed) = maps.values()
+    assert resident and all(np.array_equal(a, b) for a, b in zip(resident, streamed, strict=True))
+
+
+def _launch_line(text: str) -> dict:
+    """The counts of a run's one `kernel launches:` line."""
+    lines = [m for m in text.splitlines() if m.startswith("kernel launches:")]
+    assert len(lines) == 1, text[-3000:]
+    return {k: int(v) for k, v in (kv.split("=") for kv in lines[0].split()[2:])}
+
+
+def test_command_line_on_the_card_launches_each_kernel_per_unit_of_work(cuda, tmp_path):
+    """`python -m dynseg_torch` in processes of their own: training a
+    width-0.25 net (which the command line, having no width flag, takes
+    from a wrapped config_from_args), then int8 testing at quant_min_ch 32,
+    which quantizes blocks 3-5 at that width. K2 launches equal the
+    gathers (a warm-up step per scale, the steps, one per evaluation), K4
+    six a step, all fused; testing restores the run and launches K5 three
+    times an int8 forward."""
+    import json
+    import math
+    import os
+    import subprocess
+    import sys
+
+    from dynseg_torch import cli
+    from dynseg_torch.data.datasets import load_dataset
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    data = {"size": 128, "num_tiles": 4}
+    scales, niter, every = (25, 35), 6, 3
+    common = ["--dataset", "synthetic", "--dataset_kwargs", json.dumps(data), "--values",
+              ",".join(map(str, scales)), "--output_path", str(tmp_path),
+              "--no_prediction_maps"]
+    narrow = ("import dataclasses, sys; from dynseg_torch import cli; f = cli.config_from_args; "
+              "cli.config_from_args = lambda a: (lambda c: dataclasses.replace(c, model="
+              "dataclasses.replace(c.model, width_multiplier=0.25)))(f(a)); "
+              "sys.exit(cli.main(sys.argv[1:]))")
+    runs = {"training": ["-c", narrow, "--operation", "training", "--niter", str(niter),
+                         "--batch_size", "16", "--eval_every", str(every),
+                         "--checkpoint_every", str(niter), "--pool_backward", "pallas"],
+            "testing": ["-m", "dynseg_torch", "--operation", "testing", "--quant", "int8",
+                        "--quant_exit", "--quant_min_ch", "32"]}
+    got = {}
+    for name, argv in runs.items():
+        res = subprocess.run([sys.executable, *argv, *common], capture_output=True, text=True,
+                             cwd=root, timeout=600)
+        assert res.returncode == 0, res.stdout[-3000:] + res.stderr[-3000:]
+        assert "TOTAL:" in res.stdout
+        got[name] = _launch_line(res.stdout)
+    steps = len(scales) + niter
+    assert got["training"]["patch_gather"] == steps + niter // every
+    assert got["training"]["pool_bwd"] == got["training"]["pool_bwd.fused"] == 6 * steps
+    assert got["training"]["int8_block_conv"] == 0
+
+    cfg = cli.config_from_args(cli.build_argparser().parse_args(runs["testing"][2:] + common))
+    tiles = load_dataset("synthetic", "", 0, seed=0, **data)[1]
+    forwards = sum(math.ceil(n / cfg.infer.window_batch) for h, w in tiles.valid_hw
+                   for n in _window_grid(cfg, tiles, int(h), int(w)).values())
+    assert got["testing"]["int8_block_conv"] == got["testing"]["int8_block_conv.wgmma"] \
+        == 3 * forwards
+    assert got["testing"]["patch_gather"] == got["testing"]["pool_bwd"] == 0
+
+
+def test_int8_artifact_on_the_card_matches_the_live_forward(cuda, tmp_path):
+    """A width-0.25 dilated_icpr_rate6 int8 artifact (blocks 3-5 at
+    quant_min_ch 32, the int8 exit) exported, loaded onto the card and
+    run on a 2 x 96 x 80 raster: probabilities within 1e-5 of the live
+    int8 forward on the card, and the same K5, K6 and K7 launches through
+    the registered ops: K5 three times, all wgmma, K6 once a pool."""
+    from dynseg_torch.bridge import flax_to_torch, init_variables_np
+    from dynseg_torch.config import Config, ModelConfig
+    from dynseg_torch.export import ExportedPredictor, export_predictor
+    from dynseg_torch.ops import quant
+
+    cfg = Config(model=ModelConfig(num_classes=2, width_multiplier=0.25))
+    mcfg = cfg.model
+    mean, std = np.array([120.0, 110.5, 99.25]), np.array([40.0, 37.3, 51.7])
+    raw = np.random.default_rng(5).uniform(0, 255, (2, 96, 80, 3)).astype(np.float32)
+    xn = torch.from_numpy((raw - mean) / std).float().to(cuda)
+    sd = {k: v.to(cuda) for k, v in flax_to_torch(
+        init_variables_np(mcfg, num_input_bands=3, seed=4)).items()}
+    qsd = quant.quantize_variables(mcfg, sd, quant.calibrate(mcfg, sd, [xn[:1]]), min_ch=32,
+                                   exit_int8=True)
+    export_predictor(cfg, {k: v.cpu() for k, v in sd.items()}, mean, std, str(tmp_path),
+                     platforms=("cuda",), quant_variables={k: v.cpu() for k, v in qsd.items()})
+    pred = ExportedPredictor.load(str(tmp_path), device=cuda)
+    assert pred.manifest["quant_blocks"] == [
+        "DilatedConvBlock_3", "DilatedConvBlock_4", "DilatedConvBlock_5"]
+
+    def launches(fn):
+        int8_conv.reset_launches()
+        pool.reset_launches()
+        with torch.inference_mode():
+            out = fn()
+        torch.cuda.synchronize()
+        return out.float().cpu().numpy(), (
+            int8_conv.launches, dict(int8_conv.variant_launches), dict(pool.fwd_launches),
+            dict(pool.quantize_launches))
+
+    got, counts = launches(lambda: pred.probs_device(raw))
+    want, live_counts = launches(lambda: torch.softmax(
+        quant.make_apply(mcfg)(qsd, xn).float(), dim=-1))
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+    assert counts == live_counts
+    assert counts[0] == counts[1]["wgmma"] == 3
+    assert sum(counts[2].values()) == 6
+
+
+def test_reference_init_on_the_cards_host_is_pinned(cuda):
+    """The reference's initial weights drawn on the card's host
+    (`bridge.init_variables_like_reference`, full-width dilated_icpr_rate6,
+    3 bands, 2 and 6 classes, seeds 0-4) have the pinned digests, and a
+    Trainer's model on the card reads back the seed-0 one."""
+    from dynseg_torch import bridge
+    from dynseg_torch.config import Config, ModelConfig
+    from dynseg_torch.data.datasets import load_synthetic
+    from dynseg_torch.train import Trainer
+
+    for (classes, seed), pin in sorted(bridge.REFERENCE_INIT_SHA256.items()):
+        mcfg = ModelConfig(num_classes=classes, num_input_bands=3)
+        digest = bridge.variables_sha256(bridge.init_variables_like_reference(mcfg, 3, seed))
+        assert digest == pin, (classes, seed)
+    tr = Trainer(Config(model=ModelConfig(num_classes=2, num_input_bands=3,
+                                          pool_backward="xla")),
+                 load_synthetic(seed=0, num_tiles=2, size=64)[0], device=cuda)
+    sd = {k: v.cpu() for k, v in tr.init_state(0).model.state_dict().items()}
+    assert bridge.variables_sha256(bridge.torch_to_flax(sd)) == bridge.REFERENCE_INIT_SHA256[2, 0]

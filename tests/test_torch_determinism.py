@@ -3,8 +3,7 @@ the same seed gives the same sampling, scheduling and training
 trajectory, as the reference guarantees. Every comparison here is
 bitwise (tolerance 0): two runs of the port against each other, and the
 port's sampler against the JAX package's. On the card the same holds
-(tests/test_torch_cuda.py::test_training_is_bitwise_reproducible_on_the_card,
-chip_smoke.py phase 19)."""
+(tests/test_torch_cuda.py::test_training_is_bitwise_reproducible_on_the_card)."""
 
 import dataclasses
 

@@ -14,8 +14,8 @@ own draw on XLA-CPU.
   `dynseg.train.init_state_template(cfg, jax.random.key(seed))`: the same
   paths, shapes and dtypes, values within 2 ulp; and the port's
   `Trainer.init_state(seed)` against it leaf by leaf.
-* The digests that chip_smoke.py checks a card's host against equal
-  this host's draw.
+* The digests that tests/test_torch_cuda.py checks a card's host
+  against equal this host's draw.
 """
 
 import dataclasses
@@ -241,7 +241,8 @@ def test_trainer_init_state_is_jax_init(net_type, tiles):
 
 @pytest.mark.parametrize("classes,seed", sorted(bridge.REFERENCE_INIT_SHA256))
 def test_pinned_digests_are_the_draw(classes, seed):
-    """chip_smoke.py checks a card's host against these pins: they are
+    """tests/test_torch_cuda.py checks a card's host against these pins
+    (`test_reference_init_on_the_cards_host_is_pinned`): they are
     this host's draw of the full-width dilated_icpr_rate6 (3 bands), so a
     pin cannot go stale (the draw is held to JAX's above)."""
     m = _model("dilated_icpr_rate6", 1.0, 3, classes)

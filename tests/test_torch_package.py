@@ -16,7 +16,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # A subprocess prelude that makes the JAX package and JAX itself absent:
 # a meta-path finder refuses their top-level names, as an interpreter
-# without them would (chip_smoke.py installs the same finder).
+# without them would.
 ABSENT = "\n".join([
     "import importlib.abc, sys",
     "class Absent(importlib.abc.MetaPathFinder):",
@@ -72,10 +72,10 @@ def test_the_finder_makes_the_jax_package_absent():
 
 
 def test_no_source_line_imports_the_jax_package():
-    """No file of dynseg_torch, and not chip_smoke.py, has an import of
-    dynseg, jax, flax or optax."""
+    """No file of dynseg_torch has an import of dynseg, jax, flax or
+    optax."""
     pattern = re.compile(r"^\s*(import|from)\s+(dynseg|jax|flax|optax)(\.|\s|$)")
-    files = [os.path.join(ROOT, "chip_smoke.py")]
+    files = []
     for base, _, names in os.walk(os.path.join(ROOT, "dynseg_torch")):
         files += [os.path.join(base, n) for n in names if n.endswith(".py")]
     assert len(files) >= 28
@@ -87,22 +87,14 @@ def test_no_source_line_imports_the_jax_package():
     assert not bad, bad
 
 
-def test_chip_smoke_makes_the_jax_package_absent_first():
-    """chip_smoke.py installs the finder before it imports the port."""
-    with open(os.path.join(ROOT, "chip_smoke.py")) as f:
-        src = f.read()
-    first_import = re.search(r"^\s*(from|import) dynseg_torch", src, re.M)
-    assert "sys.meta_path.insert(0, _Absent())" in src and first_import
-    assert src.index("sys.meta_path.insert(0, _Absent())") < first_import.start()
-
-
 def test_package_imports_no_jax():
     code = ("import sys, dynseg_torch, dynseg_torch.infer, dynseg_torch.ops.quant, "
             "dynseg_torch.bridge, dynseg_torch.train, dynseg_torch.cli, "
             "dynseg_torch.ops.gather, dynseg_torch.ops.pool, dynseg_torch.checkpoint, "
             "dynseg_torch.ops.int8_probe_conv, dynseg_torch.probes.int8_kernel_probe, "
             "dynseg_torch.export, dynseg_torch.serve, dynseg_torch.parallel, "
-            "dynseg_torch.utils.profiling, dynseg_torch.probes.dp_parity; "
+            "dynseg_torch.utils.profiling, dynseg_torch.probes.dp_parity, "
+            "dynseg_torch.probes.kernel_times; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax')); "
             "assert not bad, bad; "
             "assert 'dynseg_torch.ops._build' not in sys.modules")
