@@ -1116,7 +1116,9 @@ def _launch_counts() -> str:
         *int8_conv.variant_launches.items(),
         *((f"out_{d}", n) for d, n in int8_conv.out_launches.items())])
     pools = " ".join(f"pool_bwd.{v}={n}" for v, n in pool.variant_launches.items())
-    fwd = " ".join(f"max_pool_s1.{m}={n}" for m, n in pool.fwd_launches.items())
+    fwd = " ".join(f"{op}.{m}={n}" for op, counts in (
+        ("max_pool_s1", pool.fwd_launches), ("max_pool_s1_into", pool.fwd_slot_launches))
+        for m, n in counts.items())
     return (f"kernel launches: int8_block_conv={int8_conv.launches} {variants} "
             f"patch_gather={gather.launches} pool_bwd={pool.launches} {pools} {fwd}")
 

@@ -32,9 +32,16 @@
 // next strip, whose blocks come next in launch order and find them in L2.
 // Taps outside the image are skipped: every window holds its own centre,
 // so no pad value can win and none is needed. A C whose pixel is not whole
-// 16-byte pieces, or a pointer off 16 bytes, takes the same kernel with
-// one element a thread. Any window 1..7 with XLA's SAME split: (window-1)/2
-// before, the rest after.
+// 16-byte pieces, or a pointer or an output pixel stride off 16 bytes,
+// takes the same kernel with one element a thread (the caller names the
+// path: ops/pool.py `fwd_path`). Any window 1..7 with XLA's SAME split:
+// (window-1)/2 before, the rest after.
+//
+// The output may be a channel slot of a wider NHWC buffer: its pixels lie
+// `ldy` elements apart (ldy == C for a tensor of its own). The dense-wired
+// int8 forward (ops/quant.py `_dense_forward`) pools each block's output
+// straight into its slot of the feature buffer this way, so no copy moves
+// it there.
 //
 // Exactness: the max is exact, and in f32 a NaN wins as in ATen's
 // max_pool2d. The quantize divides with __fdiv_rn (not a multiply by the
@@ -49,6 +56,7 @@ namespace {
 
 constexpr int THREADS = 256;
 enum Mode { kI8 = 0, kF32I8 = 1, kF32 = 2 };  // ops/pool.py FWD_MODES
+enum Path { kVec16 = 0, kScalar = 1 };         // ops/pool.py FWD_PATHS
 
 // The loaded vector and the stored one, and the elements they hold.
 template <int MODE, bool VEC> struct Io;
@@ -100,12 +108,13 @@ __device__ __forceinline__ void store(Out* p, In m, float sx) {
 }
 
 // One block: THREADS vectors of an image row, over a strip of `rows`
-// output rows of one image. Vector i of a row is pixel i / nv.
+// output rows of one image. Vector i of a row is pixel i / nv; an output
+// pixel is `ldv` vectors after the one before it.
 template <int MODE, int WIN, bool VEC>
 __global__ void __launch_bounds__(THREADS)
 max_pool_s1_fwd(const typename Io<MODE, VEC>::In* __restrict__ x,
                 typename Io<MODE, VEC>::Out* __restrict__ y, const float* __restrict__ scale,
-                int H, int W, int nv, int rows, int chunks, int strips) {
+                int H, int W, int nv, int ldv, int rows, int chunks, int strips) {
   using In = typename Io<MODE, VEC>::In;
   constexpr int LO = (WIN - 1) / 2, HI = WIN - 1 - LO;
   const int row_len = W * nv;
@@ -117,9 +126,9 @@ max_pool_s1_fwd(const typename Io<MODE, VEC>::In* __restrict__ x,
   const int w = i / nv;
   const int h0 = strip * rows;
   const int h1 = min(h0 + rows, H);
-  const long long img = b * H * row_len + i;
-  const In* xi = x + img;
-  auto* yi = y + img;
+  const long long y_row = static_cast<long long>(W) * ldv;
+  const In* xi = x + b * H * row_len + i;
+  auto* yi = y + b * H * y_row + static_cast<long long>(w) * ldv + (i - w * nv);
   float sx = 0.0f;
   if constexpr (MODE == kF32I8) sx = __ldg(scale);
 
@@ -142,15 +151,15 @@ max_pool_s1_fwd(const typename Io<MODE, VEC>::In* __restrict__ x,
     In m = ring[0];
 #pragma unroll
     for (int k = 1; k < WIN; ++k) m = vmax(m, ring[k]);
-    store<MODE>(yi + static_cast<long long>(h) * row_len, m, sx);
+    store<MODE>(yi + h * y_row, m, sx);
 #pragma unroll
     for (int k = 0; k < WIN - 1; ++k) ring[k] = ring[k + 1];
   }
 }
 
 template <int MODE, int WIN, bool VEC>
-int launch(const void* x, void* y, const float* scale, int B, int H, int W, int C, int rows,
-           cudaStream_t st) {
+int launch(const void* x, void* y, const float* scale, int B, int H, int W, int C, int ldy,
+           int rows, cudaStream_t st) {
   using T = Io<MODE, VEC>;
   const int nv = C / T::N;
   const int chunks = (W * nv + THREADS - 1) / THREADS;
@@ -159,58 +168,62 @@ int launch(const void* x, void* y, const float* scale, int B, int H, int W, int 
   if (blocks >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
   max_pool_s1_fwd<MODE, WIN, VEC><<<static_cast<unsigned>(blocks), THREADS, 0, st>>>(
       static_cast<const typename T::In*>(x), static_cast<typename T::Out*>(y), scale, H, W, nv,
-      rows, chunks, strips);
+      ldy / T::N, rows, chunks, strips);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int MODE, bool VEC>
 int launch_window(int window, const void* x, void* y, const float* scale, int B, int H, int W,
-                  int C, int rows, cudaStream_t st) {
+                  int C, int ldy, int rows, cudaStream_t st) {
   switch (window) {
-    case 1: return launch<MODE, 1, VEC>(x, y, scale, B, H, W, C, rows, st);
-    case 2: return launch<MODE, 2, VEC>(x, y, scale, B, H, W, C, rows, st);
-    case 3: return launch<MODE, 3, VEC>(x, y, scale, B, H, W, C, rows, st);
-    case 4: return launch<MODE, 4, VEC>(x, y, scale, B, H, W, C, rows, st);
-    case 5: return launch<MODE, 5, VEC>(x, y, scale, B, H, W, C, rows, st);
-    case 6: return launch<MODE, 6, VEC>(x, y, scale, B, H, W, C, rows, st);
-    case 7: return launch<MODE, 7, VEC>(x, y, scale, B, H, W, C, rows, st);
+    case 1: return launch<MODE, 1, VEC>(x, y, scale, B, H, W, C, ldy, rows, st);
+    case 2: return launch<MODE, 2, VEC>(x, y, scale, B, H, W, C, ldy, rows, st);
+    case 3: return launch<MODE, 3, VEC>(x, y, scale, B, H, W, C, ldy, rows, st);
+    case 4: return launch<MODE, 4, VEC>(x, y, scale, B, H, W, C, ldy, rows, st);
+    case 5: return launch<MODE, 5, VEC>(x, y, scale, B, H, W, C, ldy, rows, st);
+    case 6: return launch<MODE, 6, VEC>(x, y, scale, B, H, W, C, ldy, rows, st);
+    case 7: return launch<MODE, 7, VEC>(x, y, scale, B, H, W, C, ldy, rows, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 template <int MODE>
 int launch_mode(bool vec, int window, const void* x, void* y, const float* scale, int B, int H,
-                int W, int C, int rows, cudaStream_t st) {
-  return vec ? launch_window<MODE, true>(window, x, y, scale, B, H, W, C, rows, st)
-             : launch_window<MODE, false>(window, x, y, scale, B, H, W, C, rows, st);
+                int W, int C, int ldy, int rows, cudaStream_t st) {
+  return vec ? launch_window<MODE, true>(window, x, y, scale, B, H, W, C, ldy, rows, st)
+             : launch_window<MODE, false>(window, x, y, scale, B, H, W, C, ldy, rows, st);
 }
 
 }  // namespace
 
-// y = maxpool_{window, SAME, stride 1}(x), x and y (B, H, W, C) NHWC-
-// contiguous on the card, in `mode` (0 i8, 1 f32_i8 with the float32
-// scale sx at `scale` on the card, 2 f32), over strips of `rows` output
-// rows. Launches on `stream`, does not synchronise, and returns
+// y = maxpool_{window, SAME, stride 1}(x), x (B, H, W, C) NHWC-contiguous
+// on the card and y (B, H, W, C) with its pixels `ldy` >= C elements apart
+// (a channel slot of a wider NHWC buffer, or ldy == C), in `mode` (0 i8, 1
+// f32_i8 with the float32 scale sx at `scale` on the card, 2 f32), over
+// strips of `rows` output rows. `path` 0 (vec16) needs every input and
+// output pixel in whole 16-byte loads on their boundaries: C and ldy in
+// whole vectors, x on 16 bytes and y on its vector's size; 1 (scalar)
+// takes any. Launches on `stream`, does not synchronise, and returns
 // cudaGetLastError(), or cudaErrorInvalidValue for operands out of range.
 extern "C" int dynseg_max_pool_s1(const void* x, void* y, const void* scale, int B, int H, int W,
-                                  int C, int window, int mode, int rows, void* stream) {
+                                  int C, int ldy, int window, int mode, int path, int rows,
+                                  void* stream) {
   const auto st = static_cast<cudaStream_t>(stream);
   const auto* sx = static_cast<const float*>(scale);
   const auto at = [](const void* p, unsigned n) { return reinterpret_cast<uintptr_t>(p) % n == 0; };
-  if (B < 1 || H < 1 || W < 1 || C < 1 || rows < 1 || window < 1 || window > 7 ||
-      static_cast<long long>(W) * C >= (1LL << 31) - THREADS || (mode == kF32I8) != (sx != nullptr))
+  if (B < 1 || H < 1 || W < 1 || C < 1 || ldy < C || rows < 1 || window < 1 || window > 7 ||
+      static_cast<long long>(W) * C >= (1LL << 31) - THREADS ||
+      (mode == kF32I8) != (sx != nullptr) || (path != kVec16 && path != kScalar))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool vec = path == kVec16;
+  // Codes per vector, and the bytes of its store.
+  const int n = mode == kI8 ? 16 : 4, out_bytes = mode == kF32I8 ? 4 : 16;
+  if (vec && (C % n || ldy % n || !at(x, 16) || !at(y, out_bytes)))
     return static_cast<int>(cudaErrorInvalidValue);
   switch (mode) {
-    case kI8:
-      return launch_mode<kI8>(C % 16 == 0 && at(x, 16) && at(y, 16), window, x, y, sx, B, H, W,
-                              C, rows, st);
-    case kF32I8:
-      return launch_mode<kF32I8>(C % 4 == 0 && at(x, 16) && at(y, 4), window, x, y, sx, B, H,
-                                 W, C, rows, st);
-    case kF32:
-      return launch_mode<kF32>(C % 4 == 0 && at(x, 16) && at(y, 16), window, x, y, sx, B, H, W,
-                               C, rows, st);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+    case kI8: return launch_mode<kI8>(vec, window, x, y, sx, B, H, W, C, ldy, rows, st);
+    case kF32I8: return launch_mode<kF32I8>(vec, window, x, y, sx, B, H, W, C, ldy, rows, st);
+    case kF32: return launch_mode<kF32>(vec, window, x, y, sx, B, H, W, C, ldy, rows, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

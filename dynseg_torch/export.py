@@ -14,8 +14,10 @@ height, width), each saved with `torch.export.save`:
 
 A float artifact needs only torch to run. An int8 artifact calls K5 as
 the registered operator `dynseg_torch::int8_block_conv` (one call per
-quantized block), K6 as `dynseg_torch::max_pool_s1` (one call per pool)
-and, where a block quantizes a float map, K7 as
+quantized block), K6 as `dynseg_torch::max_pool_s1` (one call per pool;
+`dynseg_torch::max_pool_s1_into` where a dense-wired net's block pools
+into its slot of the feature buffer) and, where a block quantizes a float
+map, K7 as
 `dynseg_torch::quantize_s8`, so it needs `dynseg_torch` importable and,
 on the card, the kernel library it builds; its manifest lists the ops its
 programs call under "custom_ops" and `ExportedPredictor.load` registers
@@ -49,9 +51,10 @@ MANIFEST = "manifest.json"
 # registers it.
 INT8_OP = "dynseg_torch::int8_block_conv"
 POOL_OP = "dynseg_torch::max_pool_s1"
+POOL_INTO_OP = "dynseg_torch::max_pool_s1_into"
 QUANT_OP = "dynseg_torch::quantize_s8"
 CUSTOM_OPS = {INT8_OP: "dynseg_torch.ops.int8_conv", POOL_OP: "dynseg_torch.ops.pool",
-              QUANT_OP: "dynseg_torch.ops.pool"}
+              POOL_INTO_OP: "dynseg_torch.ops.pool", QUANT_OP: "dynseg_torch.ops.pool"}
 
 
 class _Entry(nn.Module):

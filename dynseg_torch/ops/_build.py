@@ -59,8 +59,8 @@ def _bind(lib: ctypes.CDLL) -> None:
     fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, p]
     fn.restype = ctypes.c_int
     fn = lib.dynseg_max_pool_s1
-    # x, y, scale, B, H, W, C, window, mode, rows, stream
-    fn.argtypes = [p, p, p, i, i, i, i, i, i, i, p]
+    # x, y, scale, B, H, W, C, ldy, window, mode, path, rows, stream
+    fn.argtypes = [p, p, p, i, i, i, i, i, i, i, i, i, p]
     fn.restype = ctypes.c_int
     fn = lib.dynseg_quantize_s8
     # x, y, scale, pixels, C, pixel_stride, bf16, path, stream

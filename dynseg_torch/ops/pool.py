@@ -36,8 +36,15 @@ int8, "f32_i8" pools float32 and quantizes the max once to int8 at the
 scale (equal to quantize-then-pool, since the quantize is monotone), "f32"
 pools float32. On the CPU the op runs `max_pool_fwd_ref`, the plain
 composition; on the card it launches the kernel. `fwd_launches` counts
-its launches by mode. `pool_forward` and `max_pool_s1`, the pools of the
-train-capable nets, do not use it.
+its launches by mode. A second operator, `dynseg_torch::max_pool_s1_into`
+(`max_pool_fwd_into`), stores the max into a given view instead, such as
+a channel slot of the dense forward's feature buffer, whose pixels lie
+further apart than its channels: the kernel takes that output pixel
+stride. Either op takes the kernel's 16-byte path where `fwd_path` finds
+the pixels in whole 16-byte pieces on their boundaries, else one element
+a thread. `fwd_slot_launches` counts the stores into a view by path,
+apart from `fwd_launches`. `pool_forward` and `max_pool_s1`, the pools of the
+train-capable nets, use neither.
 
 K7 (csrc/act_quantize.cu) is the int8 forward's quantize of a float map,
 `quantize_act` in one pass, through the registered operator
@@ -70,6 +77,9 @@ _SMEM_LIMIT = 232448
 # K6's load/store modes (the C entry's mode codes) and its launches by mode.
 FWD_MODES = ("i8", "f32_i8", "f32")
 fwd_launches = dict.fromkeys(FWD_MODES, 0)
+# K6's paths (the C entry's path codes), and its stores into a view by path.
+FWD_PATHS = ("vec16", "scalar")
+fwd_slot_launches = dict.fromkeys(FWD_PATHS, 0)
 # K6's strip: output rows a thread walks down H. Over the dense int8
 # forward's six pools on an H100, strips of 4 and 16 rows were the fastest
 # of 2 to 64, within 1 % of each other (a whole 336-row column took twice
@@ -85,7 +95,7 @@ quantize_launches = dict.fromkeys(QUANT_PATHS, 0)
 def reset_launches() -> None:
     global launches
     launches = 0
-    for counts in (variant_launches, fwd_launches, quantize_launches):
+    for counts in (variant_launches, fwd_launches, fwd_slot_launches, quantize_launches):
         for v in counts:
             counts[v] = 0
 
@@ -319,16 +329,17 @@ def _fwd_op(x: torch.Tensor, window: int,
     return max_pool_fwd_ref(x, window, scale)
 
 
+def _fwd_dtype(mode: str) -> torch.dtype:
+    return torch.float32 if mode == "f32" else torch.int8
+
+
 @_fwd_op.register_fake
 def _(x, window, scale):
-    mode = fwd_mode(x.dtype, scale is not None)
-    return x.new_empty(x.shape, dtype=torch.float32 if mode == "f32" else torch.int8)
+    return x.new_empty(x.shape, dtype=_fwd_dtype(fwd_mode(x.dtype, scale is not None)))
 
 
-@_fwd_op.register_kernel("cuda")
-def _fwd_launch(x, window, scale):
-    """The op on the card: one launch of csrc/max_pool_fwd.cu, counted. A
-    launch that fails raises; nothing falls back to the plain version."""
+def _fwd_checked(x, window, scale) -> str:
+    """K6's mode for x, after the checks of a launch on the card."""
     mode = fwd_mode(x.dtype, scale is not None)
     if not x.is_contiguous():
         raise ValueError("max_pool_s1 forward: x must be NHWC-contiguous")
@@ -339,21 +350,92 @@ def _fwd_launch(x, window, scale):
         raise ValueError(f"max_pool_s1 forward: the scale must be one float32 on "
                          f"{x.device}, got {tuple(scale.shape)} {scale.dtype} on "
                          f"{scale.device}")
-    y = torch.empty(x.shape, device=x.device,
-                    dtype=torch.float32 if mode == "f32" else torch.int8)
-    if y.numel() == 0:
-        return y
+    return mode
+
+
+def fwd_path(mode: str, c: int, ldy: int, x_ptr: int, y_ptr: int) -> str:
+    """K6's path in `mode` for pixels of `c` channels at x_ptr, stored
+    `ldy` elements apart from y_ptr: "vec16" where every input and output
+    pixel is whole 16-byte loads (16 codes or 4 floats) on their
+    boundaries, x on 16 bytes and y on its store's size (4 codes in
+    f32_i8), else "scalar"."""
+    n = 16 if mode == "i8" else 4
+    out_bytes = 4 if mode == "f32_i8" else 16
+    aligned = x_ptr % 16 == 0 and y_ptr % out_bytes == 0
+    return "vec16" if c % n == 0 and ldy % n == 0 and aligned else "scalar"
+
+
+def _fwd_kernel(x, window, scale, mode, y) -> str:
+    """One launch of csrc/max_pool_fwd.cu from x into y, whose pixels lie
+    y.stride(2) elements apart; returns the path it took. A launch that
+    fails raises; nothing falls back to the plain version."""
     from dynseg_torch.ops._build import load_library
 
     b, h, w, c = x.shape
+    ldy = y.stride(2)
+    path = fwd_path(mode, c, ldy, x.data_ptr(), y.data_ptr())
     err = load_library().dynseg_max_pool_s1(
         x.data_ptr(), y.data_ptr(), None if scale is None else scale.data_ptr(),
-        b, h, w, c, window, FWD_MODES.index(mode), _FWD_ROWS,
+        b, h, w, c, ldy, window, FWD_MODES.index(mode), FWD_PATHS.index(path), _FWD_ROWS,
         torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError(f"max_pool_s1 forward launch failed: CUDA error {err}")
+    return path
+
+
+@_fwd_op.register_kernel("cuda")
+def _fwd_launch(x, window, scale):
+    """The op on the card: one launch of csrc/max_pool_fwd.cu, counted."""
+    mode = _fwd_checked(x, window, scale)
+    y = torch.empty(x.shape, device=x.device, dtype=_fwd_dtype(mode))
+    if y.numel() == 0:
+        return y
+    _fwd_kernel(x, window, scale, mode, y)
     fwd_launches[mode] += 1
     return y
+
+
+def _check_into(x, scale, out) -> None:
+    mode = fwd_mode(x.dtype, scale is not None)
+    if out.shape != x.shape or out.dtype != _fwd_dtype(mode) or out.device != x.device:
+        raise ValueError(f"max_pool_s1_into: out must be {tuple(x.shape)} "
+                         f"{_fwd_dtype(mode)} on {x.device}, got {tuple(out.shape)} "
+                         f"{out.dtype} on {out.device}")
+
+
+# K6 storing into a given view, as a registered operator that mutates it,
+# so that the int8 serving artifact writes each pooled map into its slot
+# too. On the CPU the op copies the plain version's result into the view.
+@torch.library.custom_op("dynseg_torch::max_pool_s1_into", mutates_args=("out",),
+                         device_types="cpu")
+def _fwd_into_op(x: torch.Tensor, window: int, scale: Optional[torch.Tensor],
+                 out: torch.Tensor) -> None:
+    _check_into(x, scale, out)
+    out.copy_(max_pool_fwd_ref(x, window, scale))
+
+
+@_fwd_into_op.register_fake
+def _(x, window, scale, out):
+    _check_into(x, scale, out)
+
+
+@_fwd_into_op.register_kernel("cuda")
+def _fwd_into_launch(x, window, scale, out):
+    """The op on the card: one launch of csrc/max_pool_fwd.cu that stores
+    into `out`, (B, H, W, C) NHWC with its pixels out.stride(2) >= C
+    elements apart, counted in `fwd_slot_launches` by its path."""
+    mode = _fwd_checked(x, window, scale)
+    _check_into(x, scale, out)
+    _, h, w, c = out.shape
+    ld = out.stride(2)
+    strides = (h * w * ld, w * ld, ld, 1)
+    if ld < c or any(n > 1 and s != t for n, s, t in zip(out.shape, out.stride(), strides)):
+        raise ValueError(f"max_pool_s1_into: out's pixels must lie ld >= C elements apart "
+                         f"in NHWC order, got shape {tuple(out.shape)} strides "
+                         f"{tuple(out.stride())}")
+    if out.numel() == 0:
+        return
+    fwd_slot_launches[_fwd_kernel(x, window, scale, mode, out)] += 1
 
 
 def max_pool_fwd(x: torch.Tensor, window: int,
@@ -364,6 +446,16 @@ def max_pool_fwd(x: torch.Tensor, window: int,
     channels_last format: int8 for "i8" and "f32_i8", else float32. CPU
     tensors take the plain version; CUDA tensors launch the kernel."""
     return _fwd_op(_nhwc(x), window, scale).permute(0, 3, 1, 2)
+
+
+def max_pool_fwd_into(x: torch.Tensor, window: int, scale: Optional[torch.Tensor],
+                      out: torch.Tensor) -> torch.Tensor:
+    """`max_pool_fwd` stored into `out`, an NCHW view of its result's shape
+    and dtype in the channels_last format, such as a channel slot of a
+    channels_last buffer, through the registered op. Returns `out`. CPU
+    tensors take the plain version; CUDA tensors launch the kernel."""
+    _fwd_into_op(_nhwc(x), window, scale, out.permute(0, 2, 3, 1))
+    return out
 
 
 def _check_quantize(x: torch.Tensor) -> None:

@@ -34,6 +34,10 @@ quantized block quantizes the buffer's channels up to its slot: its
 concat input behind the zero lead, which meets zero rows of its packed
 weights. K5 then sees a Cin that is a multiple of 16 wherever the slots'
 widths are (the tensor cores), and sums the same int32s as on the concat.
+A block that pools on K6 has it store the pooled map straight into its
+slot (`max_pool_fwd_into`), and the head reads the block slots in place,
+as a product over each pixel's channels whose rows lie the buffer's
+width apart: no copy moves a block's output.
 
 The activations run in ModelConfig.compute_dtype with the reference's
 rounding points: each block casts its float input to it, K5 stores the
@@ -57,7 +61,8 @@ from dynseg_torch.config import ModelConfig
 from dynseg_torch.models.dilated import arch, compute_dtype, to_nchw
 from dynseg_torch.ops.int8_conv import (PackedConv, int8_block_conv_packed,
                                        pack_conv)
-from dynseg_torch.ops.pool import max_pool_fwd, pool_forward, quantize_s8
+from dynseg_torch.ops.pool import (max_pool_fwd, max_pool_fwd_into, pool_forward,
+                                   quantize_s8)
 from dynseg_torch.utils.profiling import span
 
 # K5's tensor-core variant takes int8 channels in 16-byte pieces (TMA's
@@ -121,14 +126,19 @@ def _percentile(x: torch.Tensor, pct: float) -> torch.Tensor:
     return v[lo_i] * w_low.to(v.device) + v[hi_i] * w_high.to(v.device)
 
 
-def _pool(y: torch.Tensor, window: int, out_scale=None) -> torch.Tensor:
+def _pool(y: torch.Tensor, window: int, out_scale=None,
+          out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """A block's pool: K6 on int8 codes and on float32, with the quantize
-    to `out_scale` fused where given. A bfloat16 map pools on ATen, after
-    the quantize where it streams int8 (then its codes pool on K6)."""
+    to `out_scale` fused where given, stored into `out` where given (a
+    slot of the dense forward's buffer) and then returned as it. A
+    bfloat16 map pools on ATen, after the quantize where it streams int8
+    (then its codes pool on K6), into a map of its own."""
     if y.dtype == torch.bfloat16:
         if out_scale is None:
             return pool_forward(y, window)
         y, out_scale = quantize_s8(y, out_scale), None
+    if out is not None:
+        return max_pool_fwd_into(y, window, out_scale, out)
     return max_pool_fwd(y, window, out_scale)
 
 
@@ -184,13 +194,14 @@ def pack_blocks(mcfg: ModelConfig, variables: Dict[str, torch.Tensor],
 def _block_forward(mcfg: ModelConfig, spec: dict, p: Dict[str, torch.Tensor],
                    x: torch.Tensor, record: Optional[dict], calib_pct: float,
                    pc: Optional[PackedConv] = None, in_scale=None,
-                   out_scale=None):
+                   out_scale=None, out: Optional[torch.Tensor] = None):
     """One conv block on an NCHW (channels_last) tensor. `p` holds the
     block's entries with the "blocks.{i}." prefix stripped; `pc`, its K5
     operands, marks it quantized. When `in_scale` is set, `x` is already
     int8 at that scale; when `out_scale` is set, the epilogue requantizes
     (`pc` was packed with it) and the pool runs on int8, or a float
-    block's pool quantizes its max. Returns (y, carried_scale), where
+    block's pool quantizes its max. A pool on K6 stores into `out` where
+    given, and y is then `out`. Returns (y, carried_scale), where
     carried_scale is out_scale iff y is int8."""
     dtype = compute_dtype(mcfg)
     if in_scale is None:
@@ -202,7 +213,7 @@ def _block_forward(mcfg: ModelConfig, spec: dict, p: Dict[str, torch.Tensor],
     if pc is not None:
         xq = x if in_scale is not None else quantize_s8(x, p["act_scale"])
         y = int8_block_conv_packed(xq.permute(0, 2, 3, 1), pc).permute(0, 3, 1, 2)
-        return (_pool(y, window) if window else y), out_scale
+        return (_pool(y, window, out=out) if window else y), out_scale
     if in_scale is not None:
         x = (x.float() * in_scale).to(dtype)
     y = F.conv2d(x, p["conv.weight"].to(dtype), padding="same",
@@ -223,7 +234,7 @@ def _block_forward(mcfg: ModelConfig, spec: dict, p: Dict[str, torch.Tensor],
         y = y + cast("conv.bias")
     y = F.leaky_relu(y, mcfg.leaky_slope)
     if window:
-        return _pool(y, window, out_scale), out_scale
+        return _pool(y, window, out_scale, out), out_scale
     return (y if out_scale is None else quantize_s8(y, out_scale)), out_scale
 
 
@@ -238,11 +249,12 @@ def _dense_forward(mcfg: ModelConfig, variables: Dict[str, torch.Tensor],
                    calib_pct: float, packed: Dict[str, PackedConv]) -> torch.Tensor:
     """The blocks of the dense wiring on one NHWC feature buffer in the
     compute dtype: `dense_lead` zero channels, the input bands, then each
-    block's output in its slot, written once. A float block reads its
-    concat input from the bands to its slot; a quantized block quantizes
-    from channel 0, the zero lead included (codes 0). Returns the head's
-    input, the block slots, as NCHW channels_last. Every slot write and
-    every assembled input (a block's or the head's) is a `quant.assemble`
+    block's output in its slot, written once: by K6 where the block pools
+    there, else by a copy. A float block reads its concat input from the
+    bands to its slot; a quantized block quantizes from channel 0, the
+    zero lead included (codes 0). Returns the head's input, the block
+    slots, as an NHWC view of the buffer (no copy). The bands' copy, every
+    assembled block input and every slot copy is a `quant.assemble`
     span."""
     lead = dense_lead(x.shape[-1])
     first = lead + x.shape[-1]  # the first block's slot
@@ -264,12 +276,17 @@ def _dense_forward(mcfg: ModelConfig, variables: Dict[str, torch.Tensor],
         if record is not None:
             # Calibration probe: the concat input, without the lead.
             record[spec["name"]] = _percentile(fm[:, lead:slot].abs(), calib_pct)
+        dest = fm[:, slot:slot + spec["cout"]]
         out, _ = _block_forward(mcfg, spec, p, h, None, calib_pct, pc,
-                                in_scale=None if pc is None else p["act_scale"])
-        with span("quant.assemble"):
-            fm[:, slot:slot + spec["cout"]].copy_(out)
-    with span("quant.assemble"):
-        return fm[:, first:].contiguous(memory_format=torch.channels_last)
+                                in_scale=None if pc is None else p["act_scale"],
+                                out=dest)
+        if out is not dest:
+            with span("quant.assemble"):
+                dest.copy_(out)
+    slots = buf[..., first:]
+    if record is not None:
+        record["__head__"] = _percentile(slots.abs(), calib_pct)
+    return slots
 
 
 def _forward(mcfg: ModelConfig, variables: Dict[str, torch.Tensor],
@@ -281,13 +298,20 @@ def _forward(mcfg: ModelConfig, variables: Dict[str, torch.Tensor],
     if packed is None:
         packed = pack_blocks(mcfg, variables, stream=record is None)
     dtype = compute_dtype(mcfg)
+    head = variables["head.conv.weight"].to(dtype)
     specs = block_specs(mcfg, x.shape[-1])
-    h = to_nchw(x.float())
-    carried = None  # h is int8 at this scale when set
     if _dense_wired(mcfg):
-        h = _dense_forward(mcfg, variables, x.float(), specs, record,
-                           calib_pct, packed)
+        slots = _dense_forward(mcfg, variables, x.float(), specs, record,
+                               calib_pct, packed)
+        # The 1x1 head as one matrix product whose rows, the pixels, lie
+        # the buffer's width apart: read in place. (cuDNN's convolution
+        # reads the slots only through a copy, and the whole buffer with
+        # zero weights for the lead and bands at a slower engine.)
+        logits = F.linear(slots.reshape(-1, slots.shape[-1]), head[:, :, 0, 0])
+        logits = logits.view(*slots.shape[:3], -1)
     else:
+        h = to_nchw(x.float())
+        carried = None  # h is int8 at this scale when set
         for i, spec in enumerate(specs):
             # Stream int8 only outside calibration (the probe must see
             # every block's float input).
@@ -296,14 +320,14 @@ def _forward(mcfg: ModelConfig, variables: Dict[str, torch.Tensor],
                 mcfg, spec, _block_params(variables, spec), h, record,
                 calib_pct, packed.get(spec["name"]), in_scale=carried,
                 out_scale=out_scale)
-    if record is not None:
-        record["__head__"] = _percentile(h.abs(), calib_pct)
-    if carried is not None:
-        # int8 exit: dequantize the last block's int8 map for the head.
-        h = (h.float() * carried).to(dtype)
-    logits = F.conv2d(h.to(dtype), variables["head.conv.weight"].to(dtype))
-    logits = logits + variables["head.conv.bias"].to(dtype)[:, None, None]
-    return logits.float().permute(0, 2, 3, 1)
+        if record is not None:
+            record["__head__"] = _percentile(h.abs(), calib_pct)
+        if carried is not None:
+            # int8 exit: dequantize the last block's int8 map for the head.
+            h = (h.float() * carried).to(dtype)
+        logits = F.conv2d(h.to(dtype), head).permute(0, 2, 3, 1)
+    logits = logits + variables["head.conv.bias"].to(dtype)
+    return logits.float()
 
 
 def make_apply(mcfg: ModelConfig):

@@ -1,7 +1,8 @@
 """dynseg_torch on the card: K5 (csrc/int8_block_conv.cu), K2
-(csrc/patch_gather.cu), K4 (csrc/pool_bwd.cu), K6 (csrc/max_pool_fwd.cu),
-K7 (csrc/act_quantize.cu) and P1 (csrc/int8_conv3x3.cu) against their
-plain PyTorch versions; the serving path and train steps on the card
+(csrc/patch_gather.cu), K4 (csrc/pool_bwd.cu), K6 (csrc/max_pool_fwd.cu,
+into a tensor of its own and into a channel slot of a wider buffer), K7
+(csrc/act_quantize.cu) and P1 (csrc/int8_conv3x3.cu) against their plain
+PyTorch versions; the serving path and train steps on the card
 against the same on the CPU; data parallelism and reproducibility; the
 window fold under its memory cap, host streaming, the command line's
 kernel launches, an int8 artifact against the live forward, and the
@@ -575,6 +576,111 @@ def test_max_pool_fwd_launches_per_int8_forward(cuda):
         pool.reset_launches()
         quant.make_apply(mcfg)(qsd, x)
     assert pool.fwd_launches == {"i8": 3, "f32_i8": 0, "f32": 0}
+
+
+# K6 storing into a channel slot of the densely net's 912-channel feature
+# buffer: (slot offset, C) of its six blocks.
+DENSE_SLOTS = ((16, 64), (80, 64), (144, 128), (272, 128), (400, 256), (656, 256))
+CANARY = 1234.5  # above every value of `_k6_case` (|x| <= 150 sx)
+
+
+def _k6_slot(cuda, buf_shape, at, c, mode, window=3):
+    """Pool a K6 case of C `c` into channels at..at+c of a canary-filled
+    NHWC buffer of `buf_shape` through the slot-store op: (the buffer, the
+    case's contiguous K6 output, the path the store took)."""
+    x, sx = _k6_case(cuda, (*buf_shape[:3], c, window), mode)
+    buf = torch.full(buf_shape, CANARY if mode == "f32" else -128, device=cuda,
+                     dtype=torch.float32 if mode == "f32" else torch.int8)
+    if mode == "i8":
+        x = torch.clamp(x, min=-127)  # the canary stays below every code
+    before = dict(pool.fwd_slot_launches)
+    slot = buf.permute(0, 3, 1, 2)[:, at:at + c]
+    assert pool.max_pool_fwd_into(x.permute(0, 3, 1, 2), window, sx, slot) is slot
+    (path,) = [p for p in pool.FWD_PATHS if pool.fwd_slot_launches[p] == before[p] + 1]
+    assert sum(pool.fwd_slot_launches.values()) == sum(before.values()) + 1
+    want = pool.max_pool_fwd(x.permute(0, 3, 1, 2), window, sx).permute(0, 2, 3, 1)
+    torch.cuda.synchronize()
+    return buf, want, path
+
+
+def _canary_outside(buf, at, c, mode):
+    canary = CANARY if mode == "f32" else -128
+    return bool((buf[..., :at] == canary).all()) and bool((buf[..., at + c:] == canary).all())
+
+
+@pytest.mark.parametrize("slot", DENSE_SLOTS, ids=lambda s: "{}+{}".format(*s))
+@pytest.mark.parametrize("side", [96, 336])
+def test_max_pool_fwd_into_the_dense_slots_equals_k6_bitwise(cuda, side, slot):
+    """K6 storing f32 into each densely slot of the 912-channel buffer at
+    8 x 96^2 and at the main path's 8 x 336^2: the slot equals K6's
+    contiguous output bit for bit, every other channel still holds the
+    canary, and the store takes the 16-byte path."""
+    at, c = slot
+    buf, want, path = _k6_slot(cuda, (8, side, side, 912), at, c, "f32")
+    assert path == "vec16"
+    assert torch.equal(buf[..., at:at + c], want)
+    assert _canary_outside(buf, at, c, "f32")
+
+
+# (buffer C, slot offset, C, the path in i8 / f32_i8 / f32): a slot off 4
+# floats, ragged C 3, C 40 (ragged in 16-code pieces), and a slot all
+# three modes store in 16-byte pieces.
+SLOT_PATHS = [(912, 18, 64, ("scalar", "scalar", "scalar")),
+              (48, 5, 3, ("scalar", "scalar", "scalar")),
+              (56, 8, 40, ("scalar", "vec16", "vec16")),
+              (96, 16, 32, ("vec16", "vec16", "vec16"))]
+
+
+@pytest.mark.parametrize("mode", pool.FWD_MODES)
+@pytest.mark.parametrize("case", SLOT_PATHS, ids=lambda c: "x".join(map(str, c[:3])))
+def test_max_pool_fwd_into_a_slot_takes_its_path_and_equals_k6(cuda, case, mode):
+    """K6 storing into a slot in each mode takes the one-element path
+    where a pixel's store is not whole 16-byte pieces on their
+    boundaries, else the 16-byte path, and in both equals K6's contiguous
+    output bit for bit and leaves every other channel as it was."""
+    buf_c, at, c, paths = case
+    buf, want, path = _k6_slot(cuda, (2, 23, 19, buf_c), at, c, mode)
+    assert path == paths[pool.FWD_MODES.index(mode)]
+    assert torch.equal(buf[..., at:at + c], want)
+    assert _canary_outside(buf, at, c, mode)
+
+
+def test_max_pool_fwd_slot_stores_per_int8_forward(cuda, monkeypatch):
+    """One int8 forward of dilated_icpr_rate6_densely at full width stores
+    into a slot six times (every block pools into its slot, on the
+    16-byte path) and launches K6 into a map of its own no time; its
+    logits equal those of the same forward that pools into maps of their
+    own and copies them into the slots. A grsl_rate8 forward stores into
+    no slot."""
+    from dynseg_torch.bridge import flax_to_torch, init_variables_np
+    from dynseg_torch.config import ModelConfig
+    from dynseg_torch.ops import quant
+
+    mcfg = ModelConfig(net_type="dilated_icpr_rate6_densely", num_classes=6)
+    sd = {k: v.to(cuda) for k, v in
+          flax_to_torch(init_variables_np(mcfg, num_input_bands=3, seed=5)).items()}
+    x = torch.from_numpy(np.random.default_rng(6).normal(
+        size=(2, 48, 40, 3)).astype(np.float32)).to(cuda)
+    qsd = quant.quantize_variables(mcfg, sd, quant.calibrate(mcfg, sd, [x[:1]]))
+    apply_fn = quant.make_apply(mcfg)
+    with torch.inference_mode():
+        apply_fn(qsd, x)
+        pool.reset_launches()
+        got = apply_fn(qsd, x)
+        counts = dict(pool.fwd_slot_launches), dict(pool.fwd_launches)
+        monkeypatch.setattr(quant, "max_pool_fwd_into",
+                            lambda y, window, scale, out: quant.max_pool_fwd(y, window, scale))
+        want = apply_fn(qsd, x)
+    torch.cuda.synchronize()
+    assert counts == ({"vec16": 6, "scalar": 0}, {"i8": 0, "f32_i8": 0, "f32": 0})
+    assert torch.equal(got, want)
+    mcfg, qsd, x = _rate8_int8_state(cuda)
+    with torch.inference_mode():
+        pool.reset_launches()
+        quant.make_apply(mcfg)(qsd, x)
+    torch.cuda.synchronize()
+    assert pool.fwd_slot_launches == {"vec16": 0, "scalar": 0}
+    assert sum(pool.fwd_launches.values()) == 6
 
 
 # K7 on the dense-wired net's feature buffer: 13 zero lead channels, the

@@ -408,9 +408,11 @@ def test_cli_export_from_checkpoint(tmp_path):
 
 def test_dense_int8_artifact_calls_the_quantize_op(tmp_path):
     """A dense-wired int8 artifact (width 0.125, blocks 2-5 int8 at
-    min_ch 16): its program calls K7's op once per int8 block, the
-    manifest lists it beside K5's and K6's, and the artifact gives the
-    live int8 forward's probabilities."""
+    min_ch 16): its program calls K7's op once per int8 block and K6's
+    slot store once per block (every block pools into its slot of the
+    feature buffer, none through the op that returns a map), the
+    manifest lists both beside K5's, and the artifact gives the live int8
+    forward's probabilities."""
     cfg = _cfg("dilated_icpr_rate6_densely", classes=4)
     mcfg = _as(port_config, cfg.model)
     sd = flax_to_torch(_seeded(cfg, 4))
@@ -421,11 +423,13 @@ def test_dense_int8_artifact_calls_the_quantize_op(tmp_path):
                      quant_variables=qsd)
     port = ExportedPredictor.load(str(tmp_path), device="cpu")
     assert port.manifest["custom_ops"] == ["dynseg_torch::int8_block_conv",
-                                           "dynseg_torch::max_pool_s1",
+                                           "dynseg_torch::max_pool_s1_into",
                                            "dynseg_torch::quantize_s8"]
     program = torch.export.load(str(tmp_path / ARTIFACT))
     targets = [str(getattr(n, "target", "")) for n in program.graph.nodes]
     assert sum("quantize_s8" in t for t in targets) == 4
+    assert sum("max_pool_s1_into" in t for t in targets) == 6
+    assert not any("max_pool_s1." in t for t in targets)
     with torch.inference_mode():
         want = torch.softmax(quant.make_apply(mcfg)(qsd, xn), -1).numpy()
     np.testing.assert_allclose(port.probs(x), want, rtol=0, atol=1e-6)

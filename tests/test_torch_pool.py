@@ -2,10 +2,11 @@
 package's Pallas pool backward in interpret mode, on the cases of
 tests/test_pallas.py; MaxPoolS1's gradient through torch.autograd; the
 port's default pool backward (ATen, first max in window order) against
-XLA's select_and_scatter on tie-rich inputs; and K6's operator
-(`dynseg_torch::max_pool_s1`) on the CPU, its plain route, against the
-compositions the int8 forward ran before it and the reference's int8
-pool (`lax.reduce_window` with an int8 -128 pad)."""
+XLA's select_and_scatter on tie-rich inputs; and K6's operators
+(`dynseg_torch::max_pool_s1`, `dynseg_torch::max_pool_s1_into`) on the
+CPU, their plain routes, against the compositions the int8 forward ran
+before it and the reference's int8 pool (`lax.reduce_window` with an
+int8 -128 pad), and the path K6 takes."""
 
 import warnings
 
@@ -325,6 +326,103 @@ def test_max_pool_s1_op_schema_and_fake(mode):
     x, sx = _fwd_input((5, 6, 16, 3), mode)
     torch.library.opcheck(torch.ops.dynseg_torch.max_pool_s1.default, (x, 3, sx),
                           test_utils=("test_schema", "test_faketensor"))
+
+
+# K6 storing into a channel slot: (buffer C, slot offset, C). The densely
+# net's six slots in its 912-channel feature buffer, a slot off 4 floats,
+# ragged C 3 and 40, and a slot that is the whole buffer.
+SLOTS = [(912, 16, 64), (912, 80, 64), (912, 144, 128), (912, 272, 128), (912, 400, 256),
+         (912, 656, 256), (912, 18, 64), (48, 5, 3), (48, 8, 40), (16, 0, 16)]
+
+
+def _slot_buffer(buf_c, mode):
+    """A (2, 5, 7, buf_c) NHWC buffer of the mode's output dtype filled
+    with a canary that no pool of `_fwd_input` gives: 1234.5 in float32,
+    -100 in int8 (the tests keep their codes above it)."""
+    if mode == "f32":
+        return torch.full((2, 5, 7, buf_c), 1234.5)
+    return torch.full((2, 5, 7, buf_c), -100, dtype=torch.int8)
+
+
+@pytest.mark.parametrize("mode", pool.FWD_MODES)
+@pytest.mark.parametrize("case", SLOTS, ids=lambda c: "x".join(map(str, c)))
+def test_max_pool_fwd_into_plain_route_writes_its_slot_alone(case, mode):
+    """The slot-store op on the CPU, through `max_pool_fwd_into` on the
+    NCHW view of a channel slot, writes `max_pool_fwd_ref` there bit for
+    bit, leaves every other channel as it was, returns the view itself,
+    and launches no kernel."""
+    buf_c, at, c = case
+    x, sx = _fwd_input((5, 7, c, 3), mode)
+    if mode == "i8":
+        x = torch.clamp(x, min=-99)
+    buf = _slot_buffer(buf_c, mode)
+    before = dict(pool.fwd_slot_launches), dict(pool.fwd_launches)
+    xc = x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+    slot = buf.permute(0, 3, 1, 2)[:, at:at + c]
+    assert pool.max_pool_fwd_into(xc, 3, sx, slot) is slot
+    assert torch.equal(buf[..., at:at + c], pool.max_pool_fwd_ref(x, 3, sx))
+    assert torch.equal(buf[..., :at], _slot_buffer(at, mode))
+    assert torch.equal(buf[..., at + c:], _slot_buffer(buf_c - at - c, mode))
+    assert (dict(pool.fwd_slot_launches), dict(pool.fwd_launches)) == before
+
+
+@pytest.mark.parametrize("mode", pool.FWD_MODES)
+def test_max_pool_s1_into_op_schema_and_fake(mode):
+    """The slot-store op's schema (it mutates `out` alone), fake (meta)
+    and CPU implementations agree (torch.library.opcheck), into a channel
+    slot of a wider buffer."""
+    x, sx = _fwd_input((5, 7, 16, 3), mode)
+    out = _slot_buffer(48, mode)[..., 16:32]
+    torch.library.opcheck(torch.ops.dynseg_torch.max_pool_s1_into.default, (x, 3, sx, out),
+                          test_utils=("test_schema", "test_faketensor"))
+
+
+@pytest.mark.parametrize("shape, dtype", [((2, 5, 7, 20), torch.float32),
+                                          ((2, 5, 7, 16), torch.int8)],
+                         ids=["shape", "dtype"])
+def test_max_pool_fwd_into_refuses_another_shape_or_dtype(shape, dtype):
+    x, _ = _fwd_input((5, 7, 16, 3), "f32")
+    out = torch.zeros(shape, dtype=dtype)
+    with pytest.raises(ValueError, match="out must be"):
+        pool.max_pool_fwd_into(x.permute(0, 3, 1, 2), 3, None, out.permute(0, 3, 1, 2))
+
+
+# K6's path: (mode, C, output pixel stride, x offset, y offset in bytes,
+# path). The densely slots at offsets of 4 floats, a slot off 4 floats, a
+# stride off 4, ragged C, a base off 16 bytes, i8's 16-code pieces and
+# f32_i8's 4-byte stores.
+FWD_PATH_CASES = [
+    ("f32", 64, 912, 0, 16 * 4, "vec16"), ("f32", 256, 912, 0, 656 * 4, "vec16"),
+    ("f32", 64, 64, 0, 0, "vec16"), ("f32", 64, 912, 0, 18 * 4, "scalar"),
+    ("f32", 64, 914, 0, 0, "scalar"), ("f32", 3, 48, 0, 0, "scalar"),
+    ("f32", 40, 40, 4, 0, "scalar"), ("i8", 128, 128, 0, 0, "vec16"),
+    ("i8", 128, 136, 0, 0, "scalar"), ("i8", 40, 40, 0, 0, "scalar"),
+    ("f32_i8", 128, 128, 0, 4, "vec16"), ("f32_i8", 128, 128, 0, 2, "scalar"),
+]
+
+
+@pytest.mark.parametrize("case", FWD_PATH_CASES, ids=lambda c: "x".join(map(str, c)))
+def test_fwd_path_takes_vec16_on_whole_aligned_pieces(case):
+    mode, c, ldy, x_off, y_off, path = case
+    assert pool.fwd_path(mode, c, ldy, 1024 + x_off, 2048 + y_off) == path
+
+
+def test_dense_slots_take_the_vec16_path():
+    """Every block of dilated_icpr_rate6_densely at full width pools (f32,
+    from K5's or the float block's own map) into its slot of the
+    912-channel feature buffer (channels 16, 80, 144, 272, 400, 656) on
+    K6's 16-byte path."""
+    from dynseg_torch.config import ModelConfig
+    from dynseg_torch.ops import quant
+
+    mcfg = ModelConfig(net_type="dilated_icpr_rate6_densely", num_classes=6)
+    specs = quant.block_specs(mcfg, 3)
+    lead = quant.dense_lead(3)
+    width = lead + specs[-1]["cin"] + specs[-1]["cout"]
+    slots = [(lead + s["cin"], s["cout"]) for s in specs]
+    assert all(s["pool"] for s in specs)
+    assert slots == [(16, 64), (80, 64), (144, 128), (272, 128), (400, 256), (656, 256)]
+    assert {pool.fwd_path("f32", c, width, 0, at * 4) for at, c in slots} == {"vec16"}
 
 
 @pytest.mark.parametrize("dtype, scaled", [(torch.bfloat16, False), (torch.int8, True),

@@ -7,12 +7,14 @@ the CPU), the formulation the port ships: same folded affine, same
 epilogue. The logits bound and the argmax equality are those of
 test_pallas_conv.py."""
 
+import collections
 import dataclasses
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from dynseg.config import ModelConfig
 from dynseg.ops import quant as jax_quant
@@ -334,3 +336,38 @@ def test_dense_forward_through_the_quantize_op_equals_the_composition(monkeypatc
     lead = quant.dense_lead(3)
     assert calls == [lead + s["cin"] for s in quant.block_specs(mcfg, 3)[2:]]
     assert torch.equal(got, want)
+
+
+class _OpCalls(TorchDispatchMode):
+    """Within it, `calls` counts the operators called, by name."""
+
+    def __init__(self):
+        super().__init__()
+        self.calls = collections.Counter()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.calls[func.name()] += 1
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("net_type, slot_stores", [("dilated_icpr_rate6_densely", 6),
+                                                   ("dilated_grsl_rate8", 0),
+                                                   ("dilated_icpr_rate6", 0)])
+def test_k6_stores_into_slots_in_the_dense_forward_alone(net_type, slot_stores):
+    """An int8 forward at full width calls K6's slot-store op once a block
+    under the dense wiring, where every block pools into its slot of the
+    feature buffer (K6's op that returns a map, never), and never in the
+    sequential nets. On the CPU the slot counter stays at 0: it counts
+    the card's launches."""
+    mcfg = port_config.ModelConfig(net_type=net_type, num_classes=6)
+    sd = flax_to_torch(init_variables_np(mcfg, num_input_bands=3, seed=9))
+    x = torch.from_numpy(np.random.default_rng(10).normal(
+        size=(1, 17, 15, 3)).astype(np.float32))
+    qsd = quant.quantize_variables(mcfg, sd, quant.calibrate(mcfg, sd, [x]))
+    apply_fn = quant.make_apply(mcfg)
+    before = dict(pool.fwd_slot_launches)
+    with torch.inference_mode(), _OpCalls() as mode:
+        apply_fn(qsd, x)
+    assert mode.calls["dynseg_torch::max_pool_s1_into"] == slot_stores
+    assert mode.calls["dynseg_torch::max_pool_s1"] == 6 - slot_stores
+    assert pool.fwd_slot_launches == before

@@ -60,8 +60,10 @@ def _mcfg(dtype="float32"):
 def _concat_forward(mcfg, variables, x, record=None, calls=None):
     """The dense wiring as it ran before the feature buffer: every block
     reads the concat of the growing list of maps, and each int8 block's
-    K5 operands are packed without a lead, at the concat's own Cin. With
-    `calls`, each K5 call appends (its int8 input, its operands)."""
+    K5 operands are packed without a lead, at the concat's own Cin. The
+    head is the port's: one matrix product over the pixels of the
+    concatenated block outputs. With `calls`, each K5 call appends (its
+    int8 input, its operands)."""
     dtype = compute_dtype(mcfg)
     feats = [to_nchw(x.float()).to(dtype)]
     for spec in quant.block_specs(mcfg, x.shape[-1]):
@@ -76,12 +78,11 @@ def _concat_forward(mcfg, variables, x, record=None, calls=None):
             out, _ = quant._block_forward(mcfg, spec, p, torch.cat(feats, dim=1),
                                           record, 99.9, pc)
         feats.append(out)
-    h = torch.cat(feats[1:], dim=1)
+    h = torch.cat(feats[1:], dim=1).permute(0, 2, 3, 1)
     if record is not None:
         record["__head__"] = quant._percentile(h.abs(), 99.9)
-    logits = F.conv2d(h, variables["head.conv.weight"].to(dtype))
-    logits = logits + variables["head.conv.bias"].to(dtype)[:, None, None]
-    return logits.float().permute(0, 2, 3, 1)
+    logits = F.linear(h, variables["head.conv.weight"].to(dtype)[:, :, 0, 0])
+    return (logits + variables["head.conv.bias"].to(dtype)).float()
 
 
 @contextlib.contextmanager
@@ -194,3 +195,32 @@ def test_dense_calibration_ranges_equal_the_concat_forwards(dtype):
             for name, val in rec.items():
                 want[name] = max(want.get(name, 0.0), float(val))
     assert got == want
+
+
+@pytest.mark.parametrize("min_ch", [128, 3])
+def test_slot_stores_and_the_in_place_head_equal_the_copying_forward(monkeypatch, min_ch):
+    """The forward whose pools store into the buffer's slots and whose
+    head reads the slots in place, as one matrix product whose rows lie
+    the buffer's width apart, against the forward that pooled into maps
+    of their own, copied each into its slot and copied the slots out for
+    cuDNN's 1x1 head: the head's input equal bit for bit, and the logits
+    within 1e-5 of their largest magnitude (the head's float32 sum runs
+    in another order)."""
+    _, w, x = _setup(7, (2, 22, 25))
+    mcfg = _mcfg()
+    _, qv = _quantized(mcfg, w, [x[0], x[1]], min_ch)
+    specs = quant.block_specs(mcfg, 3)
+    packed = quant.pack_blocks(mcfg, qv)
+    with torch.inference_mode():
+        slots = quant._dense_forward(mcfg, qv, x, specs, None, 99.9, packed)
+        got = quant._forward(mcfg, qv, x, packed=packed)
+        monkeypatch.setattr(quant, "max_pool_fwd_into",
+                            lambda y, window, scale, out: quant.max_pool_fwd(y, window, scale))
+        copied = quant._dense_forward(mcfg, qv, x, specs, None, 99.9, packed)
+        head_in = copied.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+        want = F.conv2d(head_in, qv["head.conv.weight"]) + qv["head.conv.bias"][:, None, None]
+    assert slots.shape == (2, 22, 25, 896) and slots.stride(2) == LEAD + 3 + 896
+    assert torch.equal(slots, copied)
+    want = want.permute(0, 2, 3, 1)
+    gap = float((got - want).abs().max() / want.abs().max())
+    assert gap < 1e-5, gap

@@ -263,10 +263,11 @@ def test_infer_spans_count_the_tiles_and_batches(tiles, monkeypatch, mode):
 
 @pytest.mark.parametrize("net", ["dilated_icpr_rate6_densely", "dilated_icpr_rate6"])
 def test_quant_assemble_spans_count_the_dense_int8_forwards(net):
-    """The dense-wired int8 forward opens `quant.assemble` around each
-    slot write and each input it assembles (the input's slot, each
-    block's input and output, the head's input): 2 x (6 + 1) spans a
-    forward. The sequential int8 forward opens none."""
+    """The dense-wired int8 forward opens `quant.assemble` around the
+    input's slot and each block's assembled input: 6 + 1 spans a forward.
+    Every block pools into its slot on K6 and the head reads the slots in
+    place, so no slot copy or head copy opens one. The sequential int8
+    forward opens none."""
     from dynseg_torch.ops import quant
 
     mcfg = _model(net)
@@ -281,7 +282,7 @@ def test_quant_assemble_spans_count_the_dense_int8_forwards(net):
         for _ in range(3):
             apply_fn(qsd, x)
     got = profiling.totals().get("quant.assemble", {"calls": 0})["calls"]
-    assert got == (3 * 2 * 7 if net.endswith("densely") else 0)
+    assert got == (3 * 7 if net.endswith("densely") else 0)
 
 
 def test_metrics_endpoint_shows_the_serve_spans():
