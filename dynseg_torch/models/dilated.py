@@ -7,6 +7,11 @@ patch size. The nets take and return NHWC tensors, the
 reference's layout; inside they run NCHW in the channels_last format.
 ModelConfig.compute_dtype ("float32" or "bfloat16") is the activations'
 dtype; params stay float32 and the logits are float32.
+
+The dense-wired net's concats (each block's input and the head's) each
+run in a `model.assemble` span, 7 a forward, and `assembly` counts the
+bytes they write and the pixels (B*H*W) of the forwards that wrote them,
+since the last `reset_assembly()`; a sequential net adds to neither.
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ from torch import nn
 from dynseg_torch import parallel
 from dynseg_torch.config import ModelConfig
 from dynseg_torch.models.blocks import DilatedConvBlock, ScoreHead
+from dynseg_torch.utils.profiling import span
 
 # (kernel, features, dilation, pool) per block; held equal to
 # dynseg.models.dilated._ARCH by tests/test_torch_models.py.
@@ -55,6 +61,15 @@ _ARCH: dict[str, Tuple[Tuple[int, int, int, bool], ...]] = {
         (3, 192, 8, True),
     ),
 }
+
+
+# Bytes the dense-wired net's concats wrote, and the pixels of the forwards
+# that wrote them, since the last reset.
+assembly = {"bytes": 0, "px": 0}
+
+
+def reset_assembly() -> None:
+    assembly["bytes"] = assembly["px"] = 0
 
 
 def to_nchw(x: torch.Tensor) -> torch.Tensor:
@@ -152,10 +167,23 @@ class DilatedDenseNet(nn.Module):
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         feats = [to_nchw(x).to(self.blocks[0].compute_dtype)]
+        counted = not torch.compiler.is_compiling()  # no symbolic sizes
+        if counted:
+            assembly["px"] += x.shape[0] * x.shape[1] * x.shape[2]
         for block in self.blocks:
-            feats.append(block(torch.cat(feats, dim=1)))
-        h = self.dropout(torch.cat(feats[1:], dim=1), generator)
+            feats.append(block(self._assemble(feats, counted)))
+        h = self.dropout(self._assemble(feats[1:], counted), generator)
         return self.head(h).permute(0, 2, 3, 1)
+
+    @staticmethod
+    def _assemble(parts, counted: bool) -> torch.Tensor:
+        """The channel concat of `parts`, a `model.assemble` span, its
+        bytes added to `assembly`."""
+        with span("model.assemble"):
+            out = torch.cat(parts, dim=1)
+        if counted:
+            assembly["bytes"] += out.numel() * out.element_size()
+        return out
 
 
 def arch(cfg: ModelConfig) -> Tuple[Tuple[int, int, int, bool], ...]:

@@ -93,12 +93,14 @@ def _train_fold(cfg, out: str, fold: int, folds: int, device) -> dict:
     preemption record."""
     from dynseg_torch import parallel
     from dynseg_torch.cli import _launch_counts, run_training
+    from dynseg_torch.models.dilated import reset_assembly
     from dynseg_torch.ops import gather, int8_conv, pool
     from dynseg_torch.utils.logging import MetricLogger
 
     gather.launches = 0
     pool.reset_launches()
     int8_conv.reset_launches()
+    reset_assembly()
     logger = MetricLogger(out)
     logger.log(f"=== fold {fold}/{folds} ===")
     scores = run_training(cfg, log=logger,
