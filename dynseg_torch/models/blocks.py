@@ -6,7 +6,9 @@ float32 or bfloat16, rounded where Flax's modules round them (`conv`,
 train mode it normalises with the batch statistics and updates the
 running ones, exactly as Flax's BatchNorm does. Tensors inside the nets
 are NCHW in the channels_last memory format, i.e. NHWC in memory like the
-reference.
+reference, except where a block's shape routes its float conv to cuDNN
+in NCHW (`routes_nchw`); `conv_layouts` counts the float conv forwards by
+route since the last `reset_conv_layouts()`.
 """
 
 from __future__ import annotations
@@ -80,14 +82,69 @@ class BatchNorm(nn.Module):
         return y.to(x.dtype)
 
 
-def conv(layer: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+# Float conv forwards through `conv` since the last `reset_conv_layouts()`,
+# by the memory layout in which they reached cuDNN.
+conv_layouts = {"channels_last": 0, "nchw": 0}
+
+
+def reset_conv_layouts() -> None:
+    conv_layouts["channels_last"] = conv_layouts["nchw"] = 0
+
+
+def routes_nchw(in_channels: int, kernel: int, dilation: int,
+                compute_dtype: torch.dtype) -> bool:
+    """Whether a conv of this shape runs its forward in NCHW rather than
+    in channels_last. In channels_last, float32, TF32 off and with the
+    deterministic algorithms, cuDNN runs a 3x3 forward with more than 512
+    input channels (576, 643, 704 measured) and a dilation of 3 or more
+    on a direct kernel at 0.2-1.3 TFLOP/s, 20-45x slower than NCHW's
+    implicit GEMM; at dilation 1 or 2, at Cin 512, in bfloat16 and in the
+    backward the two layouts are within ~20 % (PERF.md section 5, the
+    layout table; `python -m dynseg_torch.probes.conv_layouts` times it).
+    Of the nets that is dilated_icpr_rate6_densely's block 5 alone."""
+    return (compute_dtype == torch.float32 and kernel == 3
+            and in_channels > 512 and dilation >= 3)
+
+
+class _NCHWForward(torch.autograd.Function):
+    """A stride-1 conv with an odd kernel, SAME padding and no bias whose
+    forward runs on NCHW-contiguous copies of x and w (cuDNN takes
+    channels_last if either operand is) and hands its output back in
+    channels_last, and whose backward runs in channels_last on the
+    saved inputs, where cuDNN's weight gradient is the faster."""
+
+    @staticmethod
+    def forward(ctx, x, w, dilation):
+        ctx.save_for_backward(x, w)
+        ctx.conf = ([d * (k - 1) // 2 for k, d in zip(w.shape[2:], dilation)], dilation)
+        y = F.conv2d(x.contiguous(), w.contiguous(), None, 1, ctx.conf[0], dilation)
+        return y.contiguous(memory_format=torch.channels_last)
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, w = ctx.saved_tensors
+        padding, dilation = ctx.conf
+        gx, gw, _ = torch.ops.aten.convolution_backward(
+            gy, x, w, None, [1, 1], padding, dilation, False, [0, 0], 1,
+            [ctx.needs_input_grad[0], ctx.needs_input_grad[1], False])
+        return gx, gw, None
+
+
+def conv(layer: nn.Conv2d, x: torch.Tensor, nchw: bool = False) -> torch.Tensor:
     """`layer` on x in x's dtype, as flax's nn.Conv(dtype=...) computes it:
     the kernel cast to that dtype, the conv's output rounded to it, then
-    the bias cast to it added (one more rounding in bfloat16)."""
-    if x.dtype == torch.float32:
+    the bias cast to it added (one more rounding in bfloat16). With `nchw`
+    (a block of `routes_nchw`'s shapes) the forward runs in NCHW and the
+    output comes back in channels_last; the parameter keeps its layout."""
+    if not torch.compiler.is_compiling():  # nothing counted under export
+        conv_layouts["nchw" if nchw else "channels_last"] += 1
+    if x.dtype == torch.float32 and not nchw:
         return layer(x)
-    y = F.conv2d(x, layer.weight.to(x.dtype), None, layer.stride,
-                 layer.padding, layer.dilation)
+    w = layer.weight.to(x.dtype)
+    if nchw:
+        y = _NCHWForward.apply(x, w, layer.dilation)
+    else:
+        y = F.conv2d(x, w, None, layer.stride, layer.padding, layer.dilation)
     if layer.bias is not None:
         y = y + layer.bias.to(x.dtype)[:, None, None]
     return y
@@ -100,7 +157,7 @@ class DilatedConvBlock(nn.Module):
     pixel after, as XLA does. pool_backward="pallas" routes the pool
     through K4 (`ops.pool.max_pool_s1`); "xla" keeps ATen's backward. The
     input is cast to `compute_dtype` first, and every op after runs in
-    it."""
+    it. `nchw` (from the shape, `routes_nchw`) fixes the conv's layout."""
 
     def __init__(self, in_channels: int, features: int, kernel: int,
                  dilation: int = 1, leaky_slope: float = 0.1,
@@ -119,9 +176,10 @@ class DilatedConvBlock(nn.Module):
         self.pool_window = pool_window if pool else 0
         self.pool_backward = pool_backward
         self.compute_dtype = compute_dtype
+        self.nchw = routes_nchw(in_channels, kernel, dilation, compute_dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = conv(self.conv, x.to(self.compute_dtype))
+        x = conv(self.conv, x.to(self.compute_dtype), self.nchw)
         if self.bn is not None:
             x = self.bn(x)
         x = F.leaky_relu(x, self.leaky_slope)

@@ -93,6 +93,7 @@ def _train_fold(cfg, out: str, fold: int, folds: int, device) -> dict:
     preemption record."""
     from dynseg_torch import parallel
     from dynseg_torch.cli import _launch_counts, run_training
+    from dynseg_torch.models.blocks import reset_conv_layouts
     from dynseg_torch.models.dilated import reset_assembly
     from dynseg_torch.ops import gather, int8_conv, pool
     from dynseg_torch.utils.logging import MetricLogger
@@ -101,6 +102,7 @@ def _train_fold(cfg, out: str, fold: int, folds: int, device) -> dict:
     pool.reset_launches()
     int8_conv.reset_launches()
     reset_assembly()
+    reset_conv_layouts()
     logger = MetricLogger(out)
     logger.log(f"=== fold {fold}/{folds} ===")
     scores = run_training(cfg, log=logger,

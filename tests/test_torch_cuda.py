@@ -844,6 +844,29 @@ def test_training_is_bitwise_reproducible_on_the_card(cuda):
     assert all(d == 0.0 for d in repro.distances(a, b).values()), repro.distances(a, b)
 
 
+def test_densely_training_is_bitwise_reproducible_on_the_card(cuda):
+    """Three steps of the full-width densely net (multinomial over 25 and
+    45 px, batch 8), whose block 5 (Cin 643, k3, d6) reaches cuDNN in
+    NCHW, twice from one seed: bitwise equal, and every forward took the
+    route (1 `nchw` conv to 6 `channels_last` ones)."""
+    from dynseg_torch.config import Config, ModelConfig, SchedulerConfig, TrainConfig
+    from dynseg_torch.data.datasets import load_synthetic
+    from dynseg_torch.models import blocks
+    from dynseg_torch.probes import repro
+
+    cfg = Config(model=ModelConfig(net_type="dilated_icpr_rate6_densely"),
+                 sched=SchedulerConfig(distribution_type="multinomial", values=(25, 45)),
+                 train=TrainConfig(batch_size=8, niter=3))
+    tiles = load_synthetic(seed=0, num_tiles=2, size=96)[0]
+    blocks.reset_conv_layouts()
+    a, b = (repro.train_run(cfg, tiles, cuda) for _ in range(2))
+    counted = dict(blocks.conv_layouts)
+    assert a["cudnn"] == (True, False) and len(a["losses"]) == 3
+    assert all(np.isfinite(a["losses"]))
+    assert all(d == 0.0 for d in repro.distances(a, b).values()), repro.distances(a, b)
+    assert counted["nchw"] >= 6 and counted["channels_last"] == 6 * counted["nchw"], counted
+
+
 # P1's (B, H, W, C, dilation): the TPU probe's check shapes, then ragged
 # ones: odd H and W, B 3, C 32 and 160 (a half K chunk), dilations 1, 2,
 # 5, 6, a dilation wider than the image, and a 1 x 1 image; then C 512 (two

@@ -143,6 +143,7 @@ def test_tiny_dense_training_cell(root, monkeypatch, fault):
     the concats at width 0.125, 3 + 11 + 19 + 35 + 51 + 83 + 112."""
     if fault:
         monkeypatch.setattr(DilatedDenseNet, "forward", _concat_forward(fault))
+    dilated.reset_assembly()  # as in the benchmark's own process, fresh
     res = run_cell(root, CELL, SEEDS[0], 0.3, fault is None, "cpu")
     assert res["correct"] == (fault is None), res["checks"]
     if fault is None:

@@ -94,7 +94,7 @@ def test_package_imports_no_jax():
             "dynseg_torch.ops.int8_probe_conv, dynseg_torch.probes.int8_kernel_probe, "
             "dynseg_torch.export, dynseg_torch.serve, dynseg_torch.parallel, "
             "dynseg_torch.utils.profiling, dynseg_torch.probes.dp_parity, "
-            "dynseg_torch.probes.kernel_times; "
+            "dynseg_torch.probes.kernel_times, dynseg_torch.probes.conv_layouts; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax')); "
             "assert not bad, bad; "
             "assert 'dynseg_torch.ops._build' not in sys.modules")
